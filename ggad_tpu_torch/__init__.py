@@ -5,10 +5,12 @@ an obvious counterpart. It imports ``torch`` and never ``jax`` nor anything
 of ``ggad_tpu``. Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without an explicit device it raises.
 
-This slice carries the serving path: dataset, graph preparation, the GGAD
-eval forward (gcn1 on the hoisted Â·x, gcn2 through the hand-written BCSR
-SpMM kernel, the MLP head), checkpoints, ``serve.score_dataset`` and the
-``--score_only`` CLI.
+It carries single-device full-batch GGAD: dataset, graph preparation,
+the model (gcn2 through the hand-written BCSR SpMM kernel, forward and
+backward), the three-term loss (in bf16 mode the affinity through the
+hand-written SDDMM kernel), ``train.full_batch.FullBatchTrainer.train``,
+checkpoints, ``serve.score_dataset`` and the CLI (training and
+``--score_only``).
 """
 
 __version__ = "0.1.0"

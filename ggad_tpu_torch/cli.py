@@ -1,8 +1,10 @@
 """Command-line entry point of the port: ``python -m ggad_tpu_torch.cli``.
 
-This slice carries the GGAD ``--score_only`` route of ``ggad_tpu.cli``
-(``cli.py:79-86,120-135``): restore ``--checkpoint_dir`` and score the
-dataset. It runs on the card unless ``--device cpu`` is given.
+Two GGAD routes of ``ggad_tpu.cli`` (``cli.py:120-173``): training (the
+default; per-dataset defaults from the preset registry, reference
+``run.py:38-66``) and ``--score_only``, which restores ``--checkpoint_dir``
+and scores the dataset. Both run on the card unless ``--device cpu`` is
+given. The last line of the output is one JSON record.
 """
 
 from __future__ import annotations
@@ -13,20 +15,39 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="ggad_tpu_torch scoring")
+    p = argparse.ArgumentParser(description="ggad_tpu_torch training and "
+                                            "scoring")
     p.add_argument("--dataset", type=str, default="synthetic",
                    help="photo|reddit|Amazon|t_finance|elliptic|dgraphfin|"
                         "synthetic|synthetic_<name>")
+    p.add_argument("--model", type=str, default="ggad", choices=["ggad"])
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--embedding_dim", type=int, default=300)
+    p.add_argument("--num_epoch", type=int, default=None)
+    p.add_argument("--mean", type=float, default=None)
+    p.add_argument("--var", type=float, default=None)
+    p.add_argument("--negsamp_ratio", type=int, default=1)
     p.add_argument("--data_dir", type=str, default=None)
     p.add_argument("--synthetic_scale", type=float, default=1.0,
                    help="scale factor when falling back to synthetic data")
+    p.add_argument("--eval_every", type=int, default=10)
+    p.add_argument("--train_auc_every", type=int, default=None,
+                   help="print train-split AUROC every k epochs "
+                        "(reference run.py:217-228 cadence: 2)")
     p.add_argument("--spmm_impl", type=str, default="auto",
                    choices=["auto", "coo", "bcsr", "ell"])
     p.add_argument("--spmm_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--log_jsonl", type=str, default=None,
+                   help="write per-epoch metric records to this jsonl file")
     p.add_argument("--checkpoint_dir", type=str, default=None)
+    p.add_argument("--scan_steps", type=int, default=1,
+                   help="steps between host reads of the loss")
+    p.add_argument("--retries", type=int, default=0,
+                   help="rebuild + resume from checkpoint after a failure "
+                        "(needs --checkpoint_dir)")
     p.add_argument("--score_only", action="store_true",
                    help="restore --checkpoint_dir and score the dataset")
     p.add_argument("--score_out", type=str, default=None,
@@ -39,16 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if not args.score_only:
-        raise SystemExit("this port serves only (--score_only); training "
-                         "comes with the training slice")
-    if not args.checkpoint_dir:
+    if args.score_only and not args.checkpoint_dir:
         raise SystemExit("--score_only requires --checkpoint_dir")
 
-    import numpy as np
-
     from ggad_tpu_torch.datasets.loaders import load_dataset
-    from ggad_tpu_torch.serve import score_dataset
 
     ds = load_dataset(args.dataset, data_dir=args.data_dir, seed=args.seed,
                       synthetic_scale=args.synthetic_scale)
@@ -56,6 +71,16 @@ def main(argv=None) -> int:
           f"feats={ds.feat_dim} anomalies={int(ds.ano_labels.sum())} "
           f"labeled_normals={len(ds.normal_label_idx)} "
           f"seeds={len(ds.abnormal_label_idx)}")
+    if args.score_only:
+        return score(args, ds)
+    return train(args, ds)
+
+
+def score(args, ds) -> int:
+    import numpy as np
+
+    from ggad_tpu_torch.serve import score_dataset
+
     res = score_dataset(args.checkpoint_dir, ds,
                         embedding_dim=args.embedding_dim,
                         spmm_impl=args.spmm_impl,
@@ -65,6 +90,50 @@ def main(argv=None) -> int:
     print(json.dumps({"dataset": ds.name, "model": "ggad",
                       "mode": "score_only", "ckpt_step": res.step,
                       "auc": res.auc, "ap": res.ap}))
+    return 0
+
+
+def train(args, ds) -> int:
+    from ggad_tpu_torch.datasets.registry import preset_for
+    from ggad_tpu_torch.train.full_batch import (
+        FullBatchTrainer,
+        train_with_retries,
+    )
+    from ggad_tpu_torch.utils.logging import JsonlLogger
+
+    preset = preset_for(args.dataset)
+    logger = JsonlLogger(args.log_jsonl) if args.log_jsonl else None
+
+    def make_trainer():
+        return FullBatchTrainer(
+            ds,
+            lr=args.lr if args.lr is not None else preset.lr,
+            weight_decay=args.weight_decay,
+            num_epoch=args.num_epoch,
+            embedding_dim=args.embedding_dim,
+            noise_mean=args.mean,
+            noise_std=args.var,
+            pos_weight=float(args.negsamp_ratio),
+            seed=args.seed,
+            eval_every=args.eval_every,
+            train_auc_every=args.train_auc_every,
+            spmm_impl=args.spmm_impl,
+            spmm_dtype=args.spmm_dtype,
+            scan_steps=args.scan_steps,
+            checkpoint_dir=args.checkpoint_dir,
+            logger=logger.log if logger else None,
+            device=args.device,
+        )
+
+    try:
+        res = train_with_retries(make_trainer, retries=args.retries,
+                                 verbose=True)
+    finally:
+        if logger is not None:
+            logger.close()
+    print(json.dumps({"dataset": ds.name, "model": "ggad",
+                      "auc": res.final_auc, "ap": res.final_ap,
+                      "wall_time_s": res.wall_time_s}))
     return 0
 
 

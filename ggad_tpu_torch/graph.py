@@ -58,6 +58,12 @@ class Graph:
                            device=self.device).index_add_(0, self.row,
                                                           self.val)
 
+    def in_degrees(self) -> torch.Tensor:
+        """Weighted in-degree per node: sum of val over cols."""
+        return torch.zeros(self.n_nodes, dtype=self.val.dtype,
+                           device=self.device).index_add_(0, self.col,
+                                                          self.val)
+
     def with_val(self, val: torch.Tensor) -> "Graph":
         return dataclasses.replace(self, val=val)
 
@@ -125,6 +131,43 @@ def from_scipy(mat, *, pad_multiple: int = 512,
     coo = mat.tocoo()
     return from_coo(coo.row, coo.col, coo.data, coo.shape[0],
                     pad_multiple=pad_multiple, device=device)
+
+
+def rows_subgraph(g: Graph, rows) -> Graph:
+    """Rectangular row-subgraph (``ggad_tpu/graph.py:160-195``): the edges
+    of ``rows`` with row indices renumbered 0..len(rows)-1 in the order
+    given; columns stay global.
+
+    ``spmm(sub, x)`` then computes ``(A @ x)[rows]`` in O(E_rows), forward
+    and backward (GGAD's generator aggregation, reference
+    ``model.py:151-156``). The result's ``n_nodes`` is len(rows), the row
+    count; only ``spmm`` semantics hold, not the degree helpers.
+    """
+    rows = np.asarray(rows, dtype=np.int64)
+    r, c, v = g.host_coo()
+    lookup = np.full(g.n_nodes, -1, np.int64)
+    lookup[rows] = np.arange(len(rows))
+    sel = lookup[r] >= 0
+    new_r = lookup[r[sel]]
+    order = np.argsort(new_r, kind="stable")
+    new_r, new_c, new_v = new_r[order], c[sel][order], v[sel][order]
+
+    n_e = len(new_r)
+    e_pad = max(_round_up(max(n_e, 1), 8), 8)
+    row_p = np.zeros(e_pad, np.int64)
+    col_p = np.zeros(e_pad, np.int64)
+    val_p = np.zeros(e_pad, np.float32)
+    row_p[:n_e], col_p[:n_e], val_p[:n_e] = new_r, new_c, new_v
+    indptr = np.zeros(len(rows) + 1, np.int64)
+    indptr[1:] = np.cumsum(np.bincount(new_r, minlength=len(rows)))
+    return Graph(
+        row=torch.from_numpy(row_p).to(g.device),
+        col=torch.from_numpy(col_p).to(g.device),
+        val=torch.from_numpy(val_p).to(g.device),
+        indptr=torch.from_numpy(indptr).to(g.device),
+        n_nodes=len(rows),
+        n_edges=n_e,
+    )
 
 
 def add_self_loops(g: Graph, weight: float = 1.0) -> Graph:

@@ -1,1 +1,2 @@
-"""Sparse ops of the port: SpMM (COO and BCSR), normalization, metrics."""
+"""Sparse ops of the port: SpMM (COO and BCSR), SDDMM and the affinity,
+normalization, metrics."""

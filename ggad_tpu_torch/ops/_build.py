@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``ggad_tpu_torch/build/``
 (git-ignored), under a name that carries a hash of the source and flags, and
-loaded with ``ctypes``. Nothing is built when a module is imported.
+loaded with ``ctypes``. Nothing is built when a module is imported. :func:`launch`
+calls an entry point on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -68,3 +71,20 @@ def load(name: str) -> ctypes.CDLL:
             path, _ = build(name)
             _loaded[name] = ctypes.CDLL(str(path))
         return _loaded[name]
+
+
+def launch(name: str, entry: str, device: torch.device, pointers, ints
+           ) -> None:
+    """Call ``entry`` of ``csrc/<name>.cu`` as ``entry(*pointers, *ints,
+    stream)`` on PyTorch's current stream of ``device`` (in a backward
+    pass, the stream autograd's engine set). Raises on a non-zero CUDA
+    error code."""
+    fn = getattr(load(name), entry)
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*pointers, *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")

@@ -8,15 +8,20 @@ The adjacency is stored as its occupied tiles (tile-COO, sorted by
 
 The product runs in the hand-written CUDA kernel ``csrc/bcsr_spmm.cu``
 (K1's port) for CUDA tensors and in :func:`bcsr_spmm_plain`, a loop over
-tiles with the kernel's arithmetic, for CPU tensors. Serving builds only
-the forward tile set; the transposed set and the autograd backward come
-with the training slice.
+tiles with the kernel's arithmetic, for CPU tensors.
+
+A graph carries a :class:`BCSRPair`: the forward tile set and, for
+training, the tile set of the transpose (serving builds only the forward
+set). :func:`bcsr_spmm` is differentiable in H; its backward is K1 again,
+on the transposed set. The adjacency is not trained and gets no
+gradient. Rectangular tile sets (:func:`bcsr_rect_from_coo`) feed the
+SDDMM's backward, where the product's output rows differ from H's rows.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -127,11 +132,84 @@ def pick_tile_rows(row: np.ndarray, col: np.ndarray, n_nodes: int,
 
 
 @dataclasses.dataclass(frozen=True)
+class BCSRPair:
+    """Forward and transposed tile sets for the differentiable product
+    (``pallas_spmm.py:169-176``). ``bwd`` is None for a forward-only pair
+    (``transpose=False``), which takes no gradient."""
+
+    fwd: BCSR
+    bwd: Optional[BCSR]
+    n_nodes: int
+
+
+def bcsr_pair_from_graph(g, dtype="float32", tile_rows: int = TILE,
+                         transpose: bool = True) -> BCSRPair:
+    """Both orientations of ``g`` at one tile height (only the forward one
+    unless ``transpose``), built in f32 on ``g``'s device; bf16 tiles are
+    that build rounded once, as ``pallas_spmm.py:179-198`` builds them."""
+    row, col, val = g.host_coo()
+    fwd = bcsr_from_coo(row, col, val, g.n_nodes, tile_rows=tile_rows,
+                        device=g.device).with_dtype(dtype)
+    bwd = transposed_tiles(g, dtype, tile_rows) if transpose else None
+    return BCSRPair(fwd=fwd, bwd=bwd, n_nodes=g.n_nodes)
+
+
+def transposed_tiles(g, dtype="float32", tile_rows: int = TILE) -> BCSR:
+    """The tile set of ``g``'s transpose (the pair's ``bwd``)."""
+    row, col, val = g.host_coo()
+    return bcsr_from_coo(col, row, val, g.n_nodes, tile_rows=tile_rows,
+                         device=g.device).with_dtype(dtype)
+
+
+def bcsr_rect_from_coo(row: np.ndarray, col: np.ndarray, val: np.ndarray,
+                       n_rows: int, n_cols: int, n_tiles_pad: int = 0,
+                       dtype="float32", tile_rows: int = TILE,
+                       device: DeviceLike = None) -> BCSR:
+    """Rectangular ``[n_rows × n_cols]`` tile-COO build, the port of
+    ``pallas_spmm.py:284-321``: zero values are dropped, every row block
+    gets at least one (zero) cover tile, and ``n_tiles_pad`` pads the tile
+    count with zero tiles that repeat the last key. Values are summed in
+    f32 and rounded to ``dtype`` once."""
+    device = resolve_device(device)
+    tr = tile_rows
+    rp = _round_up(max(n_rows, tr), tr)
+    cp = _round_up(max(n_cols, TILE), TILE)
+    nrt, nct = rp // tr, cp // TILE
+    row = np.asarray(row, np.int64)
+    col = np.asarray(col, np.int64)
+    val = np.asarray(val, np.float32)
+    live = val != 0
+    row, col, val = row[live], col[live], val[live]
+    tkey = (row // tr) * nct + col // TILE
+    missing = np.setdiff1d(np.arange(nrt, dtype=np.int64),
+                           np.unique(row // tr))
+    uniq, inv = np.unique(np.concatenate([tkey, missing * nct]),
+                          return_inverse=True)
+    inv = inv[: len(row)]               # the cover keys carry no values
+    n_pad = max(n_tiles_pad, len(uniq))
+    values = np.zeros((n_pad, tr, TILE), np.float32)
+    np.add.at(values, (inv, row % tr, col % TILE), val)
+    t_rows = np.full(n_pad, uniq[-1] // nct, np.int32)
+    t_cols = np.full(n_pad, uniq[-1] % nct, np.int32)
+    t_rows[: len(uniq)] = uniq // nct
+    t_cols[: len(uniq)] = uniq % nct
+    t_ptr = np.searchsorted(t_rows, np.arange(nrt + 1)).astype(np.int32)
+    return BCSR(
+        tile_rows=torch.from_numpy(t_rows).to(device),
+        tile_cols=torch.from_numpy(t_cols).to(device),
+        tile_ptr=torch.from_numpy(t_ptr).to(device),
+        values=torch.from_numpy(values).to(device, storage_dtype(dtype)),
+        n_rows=rp,
+        n_cols=cp,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
 class BCSRGraph:
-    """A Graph plus its forward BCSR tiles; drop-in for ``ops.spmm``."""
+    """A Graph plus its BCSR tile pair; drop-in for ``ops.spmm``."""
 
     graph: object            # ggad_tpu_torch.graph.Graph
-    tiles: BCSR
+    tiles: BCSRPair
 
     @property
     def row(self):
@@ -157,42 +235,48 @@ class BCSRGraph:
     def device(self):
         return self.graph.device
 
+    def in_degrees(self):
+        return self.graph.in_degrees()
 
-def as_bcsr_graph(g, dtype="float32",
-                  tile_rows: int | None = None) -> BCSRGraph:
-    """Build ``g``'s forward tiles on ``g``'s device. ``tile_rows=None``
-    picks the height with :func:`pick_tile_rows`. bf16 tiles are the f32
-    build rounded once, as the JAX package builds them."""
-    row, col, val = g.host_coo()
+    def with_transpose(self) -> "BCSRGraph":
+        """This graph with the transposed tile set (built now, at the
+        forward set's height and dtype, unless it is there)."""
+        if self.tiles.bwd is not None:
+            return self
+        fwd = self.tiles.fwd
+        bwd = transposed_tiles(self.graph, fwd.values.dtype, fwd.tile_height)
+        return dataclasses.replace(
+            self, tiles=dataclasses.replace(self.tiles, bwd=bwd))
+
+
+def as_bcsr_graph(g, dtype="float32", tile_rows: int | None = None,
+                  transpose: bool = True) -> BCSRGraph:
+    """Build ``g``'s tile pair on ``g``'s device (forward only unless
+    ``transpose``). ``tile_rows=None`` picks the height with
+    :func:`pick_tile_rows`."""
     if tile_rows is None:
+        row, col, _ = g.host_coo()
         tile_rows = pick_tile_rows(row, col, g.n_nodes)
-    tiles = bcsr_from_coo(row, col, val, g.n_nodes, tile_rows=tile_rows,
-                          device=g.device)
-    return BCSRGraph(graph=g, tiles=tiles.with_dtype(dtype))
+    return BCSRGraph(graph=g, tiles=bcsr_pair_from_graph(
+        g, dtype, tile_rows=tile_rows, transpose=transpose))
 
 
 # --------------------------------------------------------------------------
 # The product: wrapper, kernel launch and plain version
 # --------------------------------------------------------------------------
 
-def _check(tiles: BCSR, h: torch.Tensor) -> None:
+def check_tiles(tiles: BCSR) -> None:
+    """Raise unless ``tiles`` is a tile store the kernels take."""
     v = tiles.values
-    if h.dim() != 2 or h.dtype != torch.float32:
-        raise ValueError(f"h must be a 2-D float32 tensor, got "
-                         f"{h.dtype} of shape {tuple(h.shape)}")
-    if not h.is_contiguous():
-        raise ValueError("h must be contiguous")
-    if h.device != v.device:
-        raise ValueError(f"h is on {h.device}, the tiles on {v.device}")
     if v.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"tile values must be float32 or bfloat16, "
                          f"got {v.dtype}")
     if v.dim() != 3 or v.shape[2] != TILE or v.shape[1] % TILE:
         raise ValueError(f"tile values must be [T, tr, {TILE}] with tr a "
                          f"multiple of {TILE}, got {tuple(v.shape)}")
-    if tiles.n_rows % v.shape[1]:
-        raise ValueError(f"n_rows={tiles.n_rows} is not a multiple of the "
-                         f"tile height {v.shape[1]}")
+    if tiles.n_rows % v.shape[1] or tiles.n_cols % TILE:
+        raise ValueError(f"{tiles.n_rows} × {tiles.n_cols} is not a whole "
+                         f"number of {v.shape[1]} × {TILE} tiles")
     for name in ("tile_rows", "tile_cols", "tile_ptr"):
         idx = getattr(tiles, name)
         if idx.dtype != torch.int32 or idx.device != v.device:
@@ -203,47 +287,54 @@ def _check(tiles: BCSR, h: torch.Tensor) -> None:
         raise ValueError("tile values must be contiguous")
     if tiles.tile_ptr.numel() != tiles.n_rows // v.shape[1] + 1:
         raise ValueError("tile_ptr must have n_rows // tr + 1 entries")
-    n, d = h.shape
-    if n > tiles.n_cols or n > tiles.n_rows:
-        raise ValueError(f"h has {n} rows; the tiles cover "
-                         f"{tiles.n_rows} × {tiles.n_cols}")
+
+
+def check_operand(tiles: BCSR, x: torch.Tensor, max_rows: int,
+                  name: str) -> None:
+    """Raise unless ``x`` is a contiguous 2-D f32 tensor on the tiles'
+    device with at most ``max_rows`` rows."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"{name} must be a 2-D float32 tensor, got "
+                         f"{x.dtype} of shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.device != tiles.values.device:
+        raise ValueError(f"{name} is on {x.device}, the tiles on "
+                         f"{tiles.values.device}")
+    n, d = x.shape
+    if n > max_rows:
+        raise ValueError(f"{name} has {n} rows; the tiles cover "
+                         f"{max_rows}")
     if d < 1 or d >= 2 ** 31 or n >= 2 ** 31:
-        raise ValueError(f"h of shape {tuple(h.shape)} is out of range")
+        raise ValueError(f"{name} of shape {tuple(x.shape)} is out of "
+                         f"range")
 
 
-def _kernel_entry(dtype: torch.dtype):
-    lib = _build.load("bcsr_spmm")
-    fn = lib.bcsr_spmm_f32 if dtype == torch.float32 else lib.bcsr_spmm_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def bcsr_spmm_cuda(tiles: BCSR, h: torch.Tensor) -> torch.Tensor:
+def bcsr_spmm_cuda(tiles: BCSR, h: torch.Tensor, n_out: int) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream. Every output
     element is written by the kernel, so the output is ``torch.empty``."""
     n, d = h.shape
     v = tiles.values
     # as pallas_spmm.py:135-140: H is rounded to bf16 before the kernel
     hk = h if v.dtype == torch.float32 else h.to(torch.bfloat16)
-    out = torch.empty(n, d, dtype=torch.float32, device=h.device)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = _kernel_entry(v.dtype)(
-            v.data_ptr(), tiles.tile_cols.data_ptr(),
-            tiles.tile_ptr.data_ptr(), hk.data_ptr(), out.data_ptr(),
-            tiles.n_rows // v.shape[1], v.shape[1], d, n, n, stream)
-    if rc != 0:
-        raise RuntimeError(f"bcsr_spmm kernel launch failed: CUDA error {rc}")
+    out = torch.empty(n_out, d, dtype=torch.float32, device=h.device)
+    _build.launch(
+        "bcsr_spmm",
+        "bcsr_spmm_f32" if v.dtype == torch.float32 else "bcsr_spmm_bf16",
+        h.device,
+        [v.data_ptr(), tiles.tile_cols.data_ptr(), tiles.tile_ptr.data_ptr(),
+         hk.data_ptr(), out.data_ptr()],
+        [tiles.n_rows // v.shape[1], v.shape[1], d, n, n_out])
     bcsr_spmm.launches += 1
     return out
 
 
-def bcsr_spmm_plain(tiles: BCSR, h: torch.Tensor) -> torch.Tensor:
+def bcsr_spmm_plain(tiles: BCSR, h: torch.Tensor,
+                    n_out: int | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: a loop over tiles,
     ``out[r-block] += A_t.float() @ H[c-block]``, with H rounded to bf16
-    first when the tiles are bf16 (each bf16 product is exact in f32)."""
+    first when the tiles are bf16 (each bf16 product is exact in f32).
+    Returns the first ``n_out`` rows (default: as many as ``h`` has)."""
     n, d = h.shape
     tr = tiles.tile_height
     hp = torch.zeros(tiles.n_cols, d, dtype=torch.float32, device=h.device)
@@ -255,29 +346,56 @@ def bcsr_spmm_plain(tiles: BCSR, h: torch.Tensor) -> torch.Tensor:
                                    tiles.tile_cols.tolist())):
         out[r * tr:(r + 1) * tr] += (tiles.values[t].float()
                                      @ hp[c * TILE:(c + 1) * TILE])
-    return out[:n]
+    return out[:n if n_out is None else n_out]
 
 
-def bcsr_spmm(tiles: BCSR, h: torch.Tensor) -> torch.Tensor:
-    """out = M @ h for the forward tile set ``tiles``; h is ``[n, d]`` f32
-    with n ≤ the tiles' padded sizes (rows past n read as zero), out is
-    ``[n, d]`` f32.
+def bcsr_matmul(tiles: BCSR, h: torch.Tensor,
+                n_out: int | None = None) -> torch.Tensor:
+    """The first ``n_out`` rows (default: ``h``'s row count) of M @ h for
+    one tile set, square or rectangular; not differentiable. h is
+    ``[n, d]`` f32 with n ≤ ``tiles.n_cols`` (rows past n read as zero)
+    and n_out ≤ ``tiles.n_rows``; out is ``[n_out, d]`` f32.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version. ``bcsr_spmm.launches`` counts kernel launches. Not yet
-    differentiable: the backward on the transposed tiles comes with the
-    training slice.
+    plain version. ``bcsr_spmm.launches`` counts kernel launches.
     """
-    if h.requires_grad:
-        raise NotImplementedError(
-            "bcsr_spmm has no backward yet (training slice, ROADMAP "
-            "Queue 1); call it under torch.no_grad()")
-    _check(tiles, h)
+    n_out = h.shape[0] if n_out is None else n_out
+    check_tiles(tiles)
+    check_operand(tiles, h, tiles.n_cols, "h")
+    if not 0 < n_out <= tiles.n_rows:
+        raise ValueError(f"n_out={n_out}; the tiles have {tiles.n_rows} "
+                         f"rows")
     if h.device.type == "cpu":
-        return bcsr_spmm_plain(tiles, h)
+        return bcsr_spmm_plain(tiles, h, n_out)
     if h.device.type != "cuda":
         raise ValueError(f"bcsr_spmm runs on cuda or cpu, not {h.device}")
-    return bcsr_spmm_cuda(tiles, h)
+    return bcsr_spmm_cuda(tiles, h, n_out)
+
+
+class _BCSRSpMM(torch.autograd.Function):
+    """K1 forward on ``pair.fwd``, K1 backward on ``pair.bwd``
+    (``pallas_spmm.py:234-246``)."""
+
+    @staticmethod
+    def forward(ctx, h, pair):
+        ctx.pair = pair
+        return bcsr_matmul(pair.fwd, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        return bcsr_matmul(ctx.pair.bwd, g.float().contiguous()), None
+
+
+def bcsr_spmm(pair: BCSRPair, h: torch.Tensor) -> torch.Tensor:
+    """out = A @ h for the tile pair of a square adjacency; h is
+    ``[n, d]`` f32, out ``[n, d]`` f32. Differentiable in h: the backward
+    is Aᵀ @ g on the transposed tiles, which a forward-only pair lacks.
+    ``bcsr_spmm.launches`` counts K1 launches, forward and backward, from
+    every caller."""
+    if pair.bwd is None and h.requires_grad and torch.is_grad_enabled():
+        raise ValueError("this tile pair was built without its transposed "
+                         "tiles (transpose=False) and takes no gradient")
+    return _BCSRSpMM.apply(h, pair)
 
 
 bcsr_spmm.launches = 0

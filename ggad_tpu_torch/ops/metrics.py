@@ -1,9 +1,13 @@
 """Evaluation metrics: AUROC and average precision, host-side numpy copies
-of ``ggad_tpu/ops/metrics.py:21-69`` (sklearn parity)."""
+of ``ggad_tpu/ops/metrics.py:21-69`` (sklearn parity), and
+:func:`roc_auc_torch`, the on-device AUROC of ``roc_auc_jnp``."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
 
 
 def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
@@ -52,3 +56,37 @@ def average_precision(labels: np.ndarray, scores: np.ndarray) -> float:
     recall = tp / n_pos
     recall_prev = np.concatenate([[0.0], recall[:-1]])
     return float(np.sum((recall - recall_prev) * precision))
+
+
+def roc_auc_torch(labels: torch.Tensor, scores: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """AUROC on the scores' device, the counterpart of ``roc_auc_jnp``
+    (``ggad_tpu/ops/metrics.py:118-162``): ``mask`` selects the evaluated
+    subset; masked-out entries sort below every kept one; ties take
+    midranks through a stable argsort. f32 throughout, as JAX computes it.
+    Returns a 0-d tensor."""
+    labels = labels.float()
+    mask = torch.ones_like(labels) if mask is None else mask.float()
+    s = torch.where(mask > 0, scores.float(),
+                    torch.full_like(scores, torch.finfo(torch.float32).min,
+                                    dtype=torch.float32))
+    n = labels.shape[0]
+    order = torch.argsort(s, stable=True)
+    sorted_s = s[order]
+    new_run = torch.ones(n, dtype=torch.int64, device=s.device)
+    new_run[1:] = (sorted_s[1:] != sorted_s[:-1]).long()
+    run_id = torch.cumsum(new_run, 0) - 1
+    pos1 = torch.arange(1, n + 1, dtype=torch.float32, device=s.device)
+    run_sum = torch.zeros(n, device=s.device).index_add_(0, run_id, pos1)
+    run_cnt = torch.zeros(n, device=s.device).index_add_(
+        0, run_id, torch.ones(n, device=s.device))
+    mid = run_sum / run_cnt.clamp(min=1.0)
+    ranks = torch.zeros(n, device=s.device).index_copy_(0, order,
+                                                        mid[run_id])
+    pos = labels * mask
+    neg = (1.0 - labels) * mask
+    n_pos, n_neg = pos.sum(), neg.sum()
+    # masked-out entries rank below every kept one: remove that shift
+    rank_sum_pos = (ranks * pos).sum() - n_pos * (1.0 - mask).sum()
+    u = rank_sum_pos - n_pos * (n_pos + 1) / 2.0
+    return u / (n_pos * n_neg).clamp(min=1.0)

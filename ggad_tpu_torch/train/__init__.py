@@ -1,1 +1,1 @@
-"""Serving members of the full-batch trainer and checkpoints."""
+"""The full-batch trainer, its losses and checkpoints."""

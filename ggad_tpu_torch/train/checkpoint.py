@@ -2,7 +2,9 @@
 ``ggad_tpu/train/checkpoint.py``; orbax's format is not read).
 
 One file per step, ``ckpt_<step>.pt``, holding a dict of tensors and
-plain values (for serving: ``{"params": state_dict, "epoch": step}``).
+plain values. The trainer writes ``{"params": state_dict, "opt_state":
+optimizer.state_dict(), "rng": generator.get_state(), "epoch": step}``;
+serving reads ``"params"``.
 Files are written to a temporary name and renamed, so a reader never
 sees a half-written checkpoint; the newest ``MAX_TO_KEEP`` are kept, as
 the JAX package's orbax manager keeps them.

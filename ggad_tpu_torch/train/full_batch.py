@@ -1,25 +1,47 @@
-"""Full-batch GGAD trainer (counterpart of ``ggad_tpu/train/full_batch.py``),
-with the members that serving needs: graph preparation, ``init``,
-``eval_scores`` and ``evaluate``. ``train()`` comes with the training
-slice.
+"""Full-batch GGAD trainer (counterpart of ``ggad_tpu/train/full_batch.py``).
+
+A :class:`FullBatchTrainer` prepares the graph once (normalization, the
+forward BCSR tiles when they pay off, the hoisted Â·x) and owns the model
+and its optimizer. What only training reads (the transposed tiles, the
+seed-row subgraph and the labeled-column affinity subset) is built by
+:meth:`FullBatchTrainer.prepare_training` at the first step, so serving
+never holds it. ``train()`` runs forward, three-term loss, backward and Adam once per
+epoch, with the JAX trainer's log, eval and checkpoint cadence
+(``full_batch.py:454-551``); ``eval_scores`` is the scoring program that
+serving calls.
+
+On a tile-dense graph an f32 step launches K1 twice (gcn2 forward on the
+tiles, backward on the transposed tiles). A bf16 step also computes the
+margin's affinity with K2 on the rectangular tiles of raw_adj[:, labeled]
+and its backward with two more K1 launches.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+import time
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ggad_tpu_torch.datasets.core import GADDataset
+from ggad_tpu_torch.datasets.registry import preset_for
 from ggad_tpu_torch.device import DeviceLike, resolve_device
-from ggad_tpu_torch.graph import Graph, from_scipy
+from ggad_tpu_torch.graph import Graph, from_scipy, rows_subgraph
+from ggad_tpu_torch.interop import params_from_flax
 from ggad_tpu_torch.models.ggad import GGAD
-from ggad_tpu_torch.ops.bcsr_spmm import TILE, as_bcsr_graph
-from ggad_tpu_torch.ops.metrics import average_precision, roc_auc
+from ggad_tpu_torch.ops.bcsr_spmm import TILE, BCSRGraph, as_bcsr_graph
+from ggad_tpu_torch.ops.metrics import (
+    average_precision,
+    roc_auc,
+    roc_auc_torch,
+)
 from ggad_tpu_torch.ops.normalize import normalize_adj_reference
+from ggad_tpu_torch.ops.sddmm import affinity_subset, tile_affinity_subset
 from ggad_tpu_torch.ops.spmm import spmm
+from ggad_tpu_torch.train.checkpoint import Checkpointer
+from ggad_tpu_torch.train.losses import GGADLosses, ggad_losses
 
 SPMM_IMPLS = ("auto", "coo", "bcsr", "ell")
 # the JAX package's routing constants (full_batch.py:29-30), measured on
@@ -28,8 +50,8 @@ MIN_EDGES_PER_TILE = 8.0
 MEM_BUDGET_BYTES = 4 << 30
 
 
-def maybe_bcsr(adj: Graph, impl: str, *, dtype="float32"):
-    """Swap in the BCSR tiles when they pay off — the routing of
+def routes_to_bcsr(adj: Graph, impl: str, *, dtype="float32") -> bool:
+    """Whether ``adj`` takes BCSR tiles — the routing of
     ``ggad_tpu.train.full_batch.maybe_bcsr``, decided by the graph alone
     and never by the device.
 
@@ -44,7 +66,7 @@ def maybe_bcsr(adj: Graph, impl: str, *, dtype="float32"):
         raise ValueError(f"spmm_impl must be one of {SPMM_IMPLS}, "
                          f"got {impl!r}")
     if impl == "coo":
-        return adj
+        return False
     ell = NotImplementedError(
         "the ELL (tile-sparse) SpMM path is not ported yet (ROADMAP "
         "Queue 1, ELL slice); use spmm_impl='coo' or 'bcsr'")
@@ -60,36 +82,144 @@ def maybe_bcsr(adj: Graph, impl: str, *, dtype="float32"):
         if (adj.n_edges / max(tiles, 1) < MIN_EDGES_PER_TILE
                 or mem > MEM_BUDGET_BYTES):
             raise ell
-    return as_bcsr_graph(adj, dtype=dtype)
+    return True
+
+
+def maybe_bcsr(adj: Graph, impl: str, *, dtype="float32",
+               transpose: bool = True):
+    """``adj`` with its BCSR tile pair (forward only unless ``transpose``)
+    when :func:`routes_to_bcsr` says so, else ``adj`` itself."""
+    if routes_to_bcsr(adj, impl, dtype=dtype):
+        return as_bcsr_graph(adj, dtype=dtype, transpose=transpose)
+    return adj
+
+
+@dataclasses.dataclass
+class TrainResult:
+    params: dict           # final state_dict
+    history: list          # dicts: epoch, losses, (auc, ap) when evaluated
+    final_auc: float
+    final_ap: float
+    wall_time_s: float
+
+
+def train_with_retries(make_trainer: Callable[[], "FullBatchTrainer"],
+                       retries: int = 2, verbose: bool = False
+                       ) -> TrainResult:
+    """Rebuild the trainer and resume from its checkpoint after a failure
+    (``full_batch.py:65-80``). Without ``checkpoint_dir`` a retry starts
+    from scratch."""
+    for attempt in range(retries + 1):
+        trainer = make_trainer()
+        try:
+            return trainer.train(verbose=verbose)
+        except Exception as e:     # noqa: BLE001 — device faults
+            if attempt == retries:
+                raise
+            print(f"[retry] attempt {attempt + 1} failed ({e!r}); "
+                  f"rebuilding and resuming from checkpoint")
 
 
 @dataclasses.dataclass
 class FullBatchTrainer:
-    """Owns the prepared graph and the model for one dataset + config.
-
-    Serving members only; the training members of the JAX trainer (its
-    optimizer, noise and epoch settings, ``train``) come with the
-    training slice.
-    """
+    """Owns the prepared graph, the model and its optimizer for one
+    dataset + config (the single-device fields of
+    ``full_batch.py:96-133``)."""
 
     dataset: GADDataset
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    num_epoch: Optional[int] = None
     embedding_dim: int = 300
+    noise_mean: Optional[float] = None
+    noise_std: Optional[float] = None
+    confidence_margin: float = 0.7
+    pos_weight: float = 1.0        # negsamp_ratio in the reference
+    seed: int = 0
+    eval_every: int = 10
+    log_every: int = 2
     spmm_impl: str = "auto"
     spmm_dtype: str = "float32"    # "bfloat16": bf16 tiles, f32 sums
+    logger: Optional[Callable[[dict], None]] = None
+    scan_steps: int = 1            # steps between host reads of the loss
+    checkpoint_dir: Optional[str] = None
+    train_auc_every: Optional[int] = None
+    initial_params: Optional[Any] = None   # flax tree or state_dict
+    hoist_ax: bool = True          # precompute Â@x once (Â(xW₁)=(Âx)W₁)
     device: DeviceLike = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.scan_steps < 1:
+            raise ValueError(f"scan_steps must be ≥ 1, got "
+                             f"{self.scan_steps}")
         ds = self.dataset
-        graph = from_scipy(ds.adj, device=self.device)
-        adj, _ = normalize_adj_reference(graph)
-        self.adj = maybe_bcsr(adj, self.spmm_impl, dtype=self.spmm_dtype)
+        preset = preset_for(ds.name)
+        if self.num_epoch is None:
+            self.num_epoch = preset.num_epoch
+        if self.noise_mean is None:
+            self.noise_mean = preset.noise_mean
+        if self.noise_std is None:
+            self.noise_std = preset.noise_std
+
+        adj, self.raw_adj = normalize_adj_reference(
+            from_scipy(ds.adj, device=self.device))
+        # the forward tiles; prepare_training adds the transposed ones
+        self.adj = maybe_bcsr(adj, self.spmm_impl, dtype=self.spmm_dtype,
+                              transpose=False)
+        self.seed_adj: Optional[Graph] = None
+        self.aff_sub = None
         self.features = torch.as_tensor(ds.features, dtype=torch.float32,
                                         device=self.device)
+        self.seed_idx = torch.as_tensor(ds.abnormal_label_idx,
+                                        dtype=torch.int64, device=self.device)
+        self.normal_idx = torch.as_tensor(ds.normal_label_idx,
+                                          dtype=torch.int64,
+                                          device=self.device)
         # features are constant, so Â@x is computed once, on the gather
         # path as the JAX package does (full_batch.py:234-239)
-        self.ax = spmm(self.adj, self.features, impl="coo")
+        self.ax = (spmm(self.adj, self.features, impl="coo")
+                   if self.hoist_ax else None)
         self.model = GGAD(ds.feat_dim, self.embedding_dim).to(self.device)
+        # made at the first step: building a torch optimizer imports
+        # torch._dynamo (seconds), which serving never needs
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+
+    # ------------------------------------------------------------------
+    def prepare_training(self) -> None:
+        """Build what only a train step reads, once: the transposed tiles
+        (gcn2's backward), the seed-row subgraph (the generator
+        aggregation in O(E_seed)) and the margin's affinity subset at the
+        labeled nodes, in bf16 on a tile-dense raw_adj through K2 on
+        rectangular tiles (``full_batch.py:145-189``). raw_adj itself
+        needs no tiles."""
+        if self.aff_sub is not None:
+            return
+        ds = self.dataset
+        graph = self.adj
+        if isinstance(graph, BCSRGraph):
+            self.adj = graph.with_transpose()
+            graph = graph.graph
+        self.seed_adj = rows_subgraph(graph, ds.abnormal_label_idx)
+        labeled = np.concatenate([
+            np.asarray(ds.normal_label_idx, np.int64),
+            np.asarray(ds.abnormal_label_idx, np.int64)])
+        if (self.spmm_dtype == "bfloat16"
+                and routes_to_bcsr(self.raw_adj, self.spmm_impl,
+                                   dtype=self.spmm_dtype)):
+            self.aff_sub = tile_affinity_subset(self.raw_adj, labeled,
+                                                dtype=self.spmm_dtype)
+        else:
+            self.aff_sub = affinity_subset(self.raw_adj, labeled)
+
+    def make_optimizer(self) -> torch.optim.Optimizer:
+        """Adam, or AdamW when ``weight_decay``; the update formulas of
+        ``optax.adam`` / ``optax.adamw`` (b1 0.9, b2 0.999, eps 1e-8)."""
+        params = self.model.parameters()
+        if self.weight_decay:
+            return torch.optim.AdamW(params, lr=self.lr,
+                                     weight_decay=self.weight_decay)
+        return torch.optim.Adam(params, lr=self.lr)
 
     def init(self, generator: Optional[torch.Generator] = None
              ) -> dict[str, torch.Tensor]:
@@ -103,15 +233,71 @@ class FullBatchTrainer:
         return {k: v.detach().to(self.device)
                 for k, v in fresh.state_dict().items()}
 
-    @torch.no_grad()
-    def eval_scores(self, params: Mapping[str, torch.Tensor]) -> np.ndarray:
-        """One one-class logit per node (higher = more anomalous), the
-        reference's eval-branch semantics (``run.py:230-240``)."""
-        self.model.load_state_dict(params)
-        out = self.model(self.adj, self.features, train=False, ax=self.ax)
-        return out.logits[:, 0].cpu().numpy()
+    def initial_state(self) -> dict[str, torch.Tensor]:
+        """``initial_params`` (a flax tree of arrays or a ``state_dict``)
+        on the device, else the port's init seeded with ``seed``."""
+        p = self.initial_params
+        if p is None:
+            return self.init(torch.Generator().manual_seed(self.seed))
+        if any(isinstance(v, Mapping) for v in p.values()):
+            p = params_from_flax(p)
+        return {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
+                for k, v in p.items()}
 
-    def evaluate(self, params: Mapping[str, torch.Tensor],
+    def params(self) -> dict[str, torch.Tensor]:
+        """A copy of the model's current ``state_dict``."""
+        return {k: v.detach().clone()
+                for k, v in self.model.state_dict().items()}
+
+    # ------------------------------------------------------------------
+    def draw_noise(self, generator: torch.Generator) -> torch.Tensor:
+        """The seed perturbation ``N(0, 1)·noise_std + noise_mean``,
+        ``[S, n_h]``, from ``generator`` (on the trainer's device)."""
+        z = torch.randn(self.seed_idx.shape[0], self.embedding_dim,
+                        generator=generator, device=self.device)
+        return z * self.noise_std + self.noise_mean
+
+    def compute_losses(self, noise: torch.Tensor) -> GGADLosses:
+        """Train-branch forward and the three-term loss at the model's
+        current parameters, with autograd recording."""
+        self.prepare_training()
+        out = self.model(self.adj, self.features, self.seed_idx,
+                         self.normal_idx, train=True, seed_adj=self.seed_adj,
+                         ax=self.ax, noise=noise)
+        return ggad_losses(out, self.raw_adj, self.seed_idx, self.normal_idx,
+                           confidence_margin=self.confidence_margin,
+                           pos_weight=self.pos_weight, aff_sub=self.aff_sub)
+
+    def train_step(self, generator: torch.Generator) -> GGADLosses:
+        """One step: noise, forward, loss, backward, optimizer update.
+        Returns the losses, detached (on the device, not read)."""
+        if self.optimizer is None:
+            self.optimizer = self.make_optimizer()
+        self.optimizer.zero_grad(set_to_none=True)
+        losses = self.compute_losses(self.draw_noise(generator))
+        losses.total.backward()
+        self.optimizer.step()
+        return GGADLosses(*(t.detach() for t in losses))
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def logits(self, params: Optional[Mapping[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
+        """One one-class logit per node on the device. ``params``, when
+        given, are loaded into the trainer's model first."""
+        if params is not None:
+            self.model.load_state_dict(params)
+        out = self.model(self.adj, self.features, train=False, ax=self.ax)
+        return out.logits[:, 0]
+
+    def eval_scores(self, params: Optional[Mapping[str, torch.Tensor]] = None
+                    ) -> np.ndarray:
+        """One one-class logit per node (higher = more anomalous), the
+        reference's eval-branch semantics (``run.py:230-240``), on the
+        host."""
+        return self.logits(params).cpu().numpy()
+
+    def evaluate(self, params: Optional[Mapping[str, torch.Tensor]] = None,
                  subset: str = "test") -> tuple[float, float]:
         scores = self.eval_scores(params)
         ds = self.dataset
@@ -119,3 +305,94 @@ class FullBatchTrainer:
                "train": ds.idx_train}[subset]
         return (roc_auc(ds.ano_labels[idx], scores[idx]),
                 average_precision(ds.ano_labels[idx], scores[idx]))
+
+    def train_auc(self, params: Optional[Mapping[str, torch.Tensor]] = None
+                  ) -> float:
+        """AUROC over the train split on the device; only the final scalar
+        reaches the host (reference ``run.py:217-228``)."""
+        if not hasattr(self, "_auc_labels"):
+            ds = self.dataset
+            self._auc_labels = torch.as_tensor(
+                ds.ano_labels, dtype=torch.float32, device=self.device)
+            mask = torch.zeros(ds.n_nodes, device=self.device)
+            mask[torch.as_tensor(ds.idx_train, dtype=torch.int64)] = 1.0
+            self._auc_mask = mask
+        return float(roc_auc_torch(self._auc_labels, self.logits(params),
+                                   self._auc_mask))
+
+    # ------------------------------------------------------------------
+    def train(self, verbose: bool = False) -> TrainResult:
+        """Train ``num_epoch`` epochs from ``initial_state()``, or resume
+        from the newest checkpoint in ``checkpoint_dir`` (model, optimizer,
+        noise generator and epoch)."""
+        self.prepare_training()
+        self.model.load_state_dict(self.initial_state())
+        self.optimizer = self.make_optimizer()
+        generator = torch.Generator(self.device).manual_seed(self.seed)
+
+        ckpt = None
+        epoch = 0
+        if self.checkpoint_dir:
+            ckpt = Checkpointer(self.checkpoint_dir)
+            restored = ckpt.restore()
+            if restored is not None:
+                self.model.load_state_dict(restored["params"])
+                self.optimizer.load_state_dict(restored["opt_state"])
+                generator.set_state(restored["rng"])
+                epoch = int(restored["epoch"]) + 1
+
+        history = []
+        t0 = time.time()
+        while epoch < self.num_epoch:
+            # run up to scan_steps steps, stopping at the next log/eval
+            # boundary, before reading the loss. JAX fuses them with
+            # lax.scan; here they run one after another, but the chunks
+            # set which epochs are logged, evaluated and checkpointed, as
+            # in JAX (a chunk ending past a boundary skips it)
+            boundary = next(e for e in range(epoch + 1, self.num_epoch + 1)
+                            if e % self.log_every == 0
+                            or e % self.eval_every == 0
+                            or e == self.num_epoch)
+            chunk = min(max(boundary - epoch, 1), self.scan_steps)
+            for _ in range(chunk):
+                losses = self.train_step(generator)
+            epoch += chunk - 1
+
+            rec = None
+            last = epoch == self.num_epoch - 1
+            if epoch % self.log_every == 0 or last:
+                rec = {"epoch": epoch,
+                       "loss": float(losses.total),
+                       "loss_bce": float(losses.bce),
+                       "loss_margin": float(losses.margin),
+                       "loss_rec": float(losses.rec)}
+            if self.train_auc_every and (
+                    epoch % self.train_auc_every == 0 or last):
+                tauc = self.train_auc()
+                rec = rec or {"epoch": epoch}
+                rec["train_auc"] = tauc
+                if verbose:
+                    print(f"epoch {epoch:4d}  train AUROC {tauc:.4f}")
+            if epoch % self.eval_every == 0 or last:
+                auc, ap = self.evaluate()
+                rec = rec or {"epoch": epoch}
+                rec.update({"auc": auc, "ap": ap})
+                if verbose:
+                    print(f"epoch {epoch:4d}  AUROC {auc:.4f}  AP {ap:.4f}  "
+                          f"loss {float(losses.total):.4f}")
+            if rec is not None:
+                history.append(rec)
+                if self.logger is not None:
+                    self.logger(rec)
+            if ckpt is not None and (epoch % self.eval_every == 0 or last):
+                ckpt.save(epoch, {"params": self.params(),
+                                  "opt_state": self.optimizer.state_dict(),
+                                  "rng": generator.get_state(),
+                                  "epoch": epoch})
+            epoch += 1
+
+        wall = time.time() - t0
+        final_auc, final_ap = self.evaluate()
+        return TrainResult(params=self.params(), history=history,
+                           final_auc=final_auc, final_ap=final_ap,
+                           wall_time_s=wall)

@@ -101,17 +101,18 @@ def test_plain_bcsr_spmm_empty_tile_row(dtype):
     vals = rng.random(rows.shape[0]).astype(np.float32)
     p_g = pg.from_coo(rows, cols, vals, n, device="cpu")
     b = pb.as_bcsr_graph(p_g, dtype=dtype, tile_rows=128)
-    assert b.tiles.tile_ptr.tolist()[1] == b.tiles.tile_ptr.tolist()[2]
+    assert b.tiles.fwd.tile_ptr.tolist()[1] == b.tiles.fwd.tile_ptr.tolist()[2]
     h = rng.normal(size=(n, d)).astype(np.float32)
     out = pb.bcsr_spmm(b.tiles, torch.from_numpy(h)).numpy()
     assert np.all(out[128:256] == 0.0)
 
     hq = h if dtype == "float32" else np.asarray(
         jnp.asarray(h).astype(jnp.bfloat16).astype(jnp.float32))
-    vq = b.tiles.values.float()    # the stored (possibly bf16) values
-    dense = np.zeros((b.tiles.n_rows, b.tiles.n_cols), np.float32)
-    for t, (r, c) in enumerate(zip(b.tiles.tile_rows.tolist(),
-                                   b.tiles.tile_cols.tolist())):
+    fwd = b.tiles.fwd
+    vq = fwd.values.float()        # the stored (possibly bf16) values
+    dense = np.zeros((fwd.n_rows, fwd.n_cols), np.float32)
+    for t, (r, c) in enumerate(zip(fwd.tile_rows.tolist(),
+                                   fwd.tile_cols.tolist())):
         dense[r * 128:(r + 1) * 128, c * 128:(c + 1) * 128] = vq[t].numpy()
     expect = dense[:n, :n].astype(np.float64) @ hq.astype(np.float64)
     np.testing.assert_allclose(out, expect, rtol=1e-5, atol=1e-5)
@@ -145,22 +146,59 @@ def test_spmm_dispatch_and_coo_path():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     p_adj, _ = both_adj(200, 0.05, 9)
-    tiles = pb.as_bcsr_graph(p_adj).tiles
+    pair = pb.as_bcsr_graph(p_adj).tiles
+    tiles = pair.fwd
     h = torch.zeros(200, 8)
     with pytest.raises(ValueError):
-        pb.bcsr_spmm(tiles, h.double())
+        pb.bcsr_spmm(pair, h.double())
     with pytest.raises(ValueError):
-        pb.bcsr_spmm(tiles, torch.zeros(8, 200).t())       # not contiguous
+        pb.bcsr_matmul(tiles, torch.zeros(8, 200).t())     # not contiguous
     with pytest.raises(ValueError):
-        pb.bcsr_spmm(tiles, torch.zeros(tiles.n_cols + 1, 8))
+        pb.bcsr_matmul(tiles, torch.zeros(tiles.n_cols + 1, 8))
     with pytest.raises(ValueError):
-        pb.bcsr_spmm(tiles, h.to("meta"))                  # other device
+        pb.bcsr_matmul(tiles, h, tiles.n_rows + 1)
     with pytest.raises(ValueError):
-        pb.bcsr_spmm(pb.BCSR(tiles.tile_rows, tiles.tile_cols,
-                             tiles.tile_ptr.long(), tiles.values,
-                             tiles.n_rows, tiles.n_cols), h)
-    with pytest.raises(NotImplementedError):
-        pb.bcsr_spmm(tiles, h.requires_grad_())
+        pb.bcsr_matmul(tiles, h.to("meta"))                # other device
+    with pytest.raises(ValueError):
+        pb.bcsr_matmul(pb.BCSR(tiles.tile_rows, tiles.tile_cols,
+                               tiles.tile_ptr.long(), tiles.values,
+                               tiles.n_rows, tiles.n_cols), h)
+    # differentiable in h: the gradient of Σ A h is Aᵀ 1, from K1's plain
+    # version on the transposed tiles
+    hg = h.requires_grad_()
+    pb.bcsr_spmm(pair, hg).sum().backward()
+    row, col, val = p_adj.host_coo()
+    expect = np.zeros(200, np.float64)
+    np.add.at(expect, col, val)
+    np.testing.assert_allclose(hg.grad.numpy(),
+                               np.repeat(expect[:, None], 8, 1),
+                               rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         pb.bcsr_from_coo(np.zeros(1), np.zeros(1), np.ones(1), 4,
                          tile_rows=100, device="cpu")
+
+
+def test_forward_only_pair_and_with_transpose():
+    """A pair built with ``transpose=False`` (serving) holds only the
+    forward tiles: its product equals the full pair's, a gradient through
+    it is refused, and ``with_transpose`` adds exactly the transposed set
+    that ``bcsr_pair_from_graph`` builds (indices equal, values equal)."""
+    p_adj, _ = both_adj(300, 0.04, 2)
+    h = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(300, 12)).astype(np.float32))
+    for dtype in ("float32", "bfloat16"):
+        full = pb.as_bcsr_graph(p_adj, dtype, tile_rows=256)
+        fwd_only = pb.as_bcsr_graph(p_adj, dtype, tile_rows=256,
+                                    transpose=False)
+        assert fwd_only.tiles.bwd is None
+        torch.testing.assert_close(pb.bcsr_spmm(fwd_only.tiles, h),
+                                   pb.bcsr_spmm(full.tiles, h),
+                                   rtol=0, atol=0)
+        with pytest.raises(ValueError, match="transposed"):
+            pb.bcsr_spmm(fwd_only.tiles, h.clone().requires_grad_())
+        grown = fwd_only.with_transpose()
+        assert grown.tiles.fwd is fwd_only.tiles.fwd
+        assert grown.with_transpose() is grown
+        for name in ("tile_rows", "tile_cols", "tile_ptr", "values"):
+            assert torch.equal(getattr(grown.tiles.bwd, name),
+                               getattr(full.tiles.bwd, name)), name

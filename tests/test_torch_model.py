@@ -99,10 +99,40 @@ def test_eval_logits_match_jax(setup, route):
 
 
 def test_train_branch_is_not_ported_yet(setup):
-    ds = setup[0]
-    g = pg.from_scipy(ds.adj, device="cpu")
-    with pytest.raises(NotImplementedError):
-        GGAD(ds.feat_dim, N_H)(g, torch.from_numpy(ds.features), train=True)
+    """The train branch (formerly refused) against ``GGAD.apply(...,
+    train=True)`` with the same weights and JAX's own noise draw,
+    recovered from an eval-mode apply with the same rng as
+    ``emb_abnormal - emb[seed]``: every output to 1e-5 rel/abs."""
+    ds, j_adj, x, seed_idx, normal_idx, jmodel, params = setup
+    rngs = {"noise": jax.random.PRNGKey(5)}
+    j_eval = jmodel.apply(params, j_adj, x, seed_idx, normal_idx,
+                          train=False, rngs=rngs)
+    noise = np.asarray(j_eval.emb_abnormal) - np.asarray(
+        j_eval.emb)[np.asarray(seed_idx)]
+    j_out = jmodel.apply(params, j_adj, x, seed_idx, normal_idx, train=True,
+                         rngs=rngs)
+
+    p_adj, _ = pn.normalize_adj_reference(pg.from_scipy(ds.adj, device="cpu"))
+    model = GGAD(ds.feat_dim, N_H)
+    model.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    si = torch.tensor(np.asarray(seed_idx), dtype=torch.int64)
+    ni = torch.tensor(np.asarray(normal_idx), dtype=torch.int64)
+    xt = torch.from_numpy(ds.features)
+    with torch.no_grad():
+        out = model(p_adj, xt, si, ni, train=True,
+                    noise=torch.from_numpy(noise))
+        sub = model(p_adj, xt, si, ni, train=True,
+                    seed_adj=pg.rows_subgraph(p_adj, np.asarray(seed_idx)),
+                    noise=torch.from_numpy(noise))
+    for name in ("emb", "emb_combine", "logits", "emb_con", "emb_abnormal"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(j_out, name)),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(getattr(sub, name).numpy(),
+                                   getattr(out, name).numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    with pytest.raises(ValueError):
+        model(p_adj, xt, si, ni, train=True)             # no noise given
 
 
 def test_seeded_init_distribution():

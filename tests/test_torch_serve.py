@@ -85,7 +85,12 @@ def test_scorer_answers_many_requests(ckpt_dir):
         np.testing.assert_array_equal(again.scores, first.scores)
     bf16 = Scorer(ckpt_dir, ds, embedding_dim=N_H, spmm_impl="bcsr",
                   spmm_dtype="bfloat16", device="cpu")
-    assert bf16.trainer.adj.tiles.values.dtype == torch.bfloat16
+    assert bf16.trainer.adj.tiles.fwd.values.dtype == torch.bfloat16
+    # serving holds none of what only training reads
+    assert bf16.trainer.adj.tiles.bwd is None
+    assert bf16.trainer.seed_adj is None and bf16.trainer.aff_sub is None
+    bf16.trainer.prepare_training()
+    assert bf16.trainer.adj.tiles.bwd.values.dtype == torch.bfloat16
     np.testing.assert_allclose(bf16.score().scores, first.scores,
                                rtol=2e-2, atol=2e-2)
 
@@ -122,8 +127,8 @@ def test_cli_score_only_writes_scores(tmp_path, capsys):
     np.testing.assert_allclose(d["scores"], expect.scores, rtol=1e-5,
                                atol=1e-5)
     assert rec["auc"] == pytest.approx(expect.auc, abs=1e-6)
-    with pytest.raises(SystemExit):
-        cli_main(["--checkpoint_dir", ckpt, "--device", "cpu"])
+    with pytest.raises(SystemExit):        # scoring needs a checkpoint
+        cli_main(["--score_only", "--device", "cpu"])
 
 
 def test_cli_module_runs(tmp_path):
@@ -153,11 +158,14 @@ def test_checkpointer_keeps_newest(tmp_path):
 
 def test_maybe_bcsr_routing():
     """Routing by the graph: a tile-dense graph takes BCSR under 'auto',
-    a tile-sparse one the (not yet ported) ELL path; 'coo' keeps COO."""
+    a tile-sparse one the (not yet ported) ELL path; 'coo' keeps COO. A
+    BCSR graph carries the forward and the transposed tile sets."""
     from ggad_tpu_torch.graph import from_coo, from_scipy
 
     dense = from_scipy(synthetic_gad(**DS_KW).adj, device="cpu")
-    assert isinstance(maybe_bcsr(dense, "auto"), BCSRGraph)
+    routed = maybe_bcsr(dense, "auto")
+    assert isinstance(routed, BCSRGraph)
+    assert routed.tiles.fwd.n_tiles == routed.tiles.bwd.n_tiles
     assert maybe_bcsr(dense, "coo") is dense
     n = 4000       # one edge per row, columns scattered: ~1 edge a tile
     sparse = from_coo(np.arange(n), np.random.default_rng(0).permutation(n),
