@@ -8,22 +8,13 @@ Phases (any failure raises and the script exits non-zero):
      power limit as ``nvidia-smi`` gives them;
   2. build the hand-written kernels from ``ggad_tpu_torch/csrc`` (one
      ``nvcc`` per source, all started together) and print the build time;
-  3. hold each kernel against its plain PyTorch version on the card, in f32
-     and bf16: K1 at the photo serving shapes, on the transposed tile set
-     and on the rectangular sets of the labeled-column subset, and at a
-     small ragged case with an empty tile row; K2 at the photo ``[U × N]``
-     subset shapes of the bf16 trainer and at a small ragged square case
-     with an empty tile row. Time each kernel, its plain version and one
-     PyTorch library call computing the same function, and compute each
-     kernel's bound from this run's non-zeros (with the bound of the
-     current dense-tile design beside it);
-  4. serve the photo-shaped graph (``bench.py:45-49``) at n_h 300 through
+  3. serve the photo-shaped graph (``bench.py:45-49``) at n_h 300 through
      ``serve.Scorer``: 5 f32 and 5 bf16 requests from a checkpoint of the
      port's seeded init, with the kernels' launch counters set to 0 just
      before each run and read just after; the preparation's time and the
      device memory it holds (no training-only structure is built); the f32
      scores are checked against a CPU run of the same weights;
-  5. train on the same graph at n_h 300 through ``FullBatchTrainer.train``:
+  4. train on the same graph at n_h 300 through ``FullBatchTrainer.train``:
      10 f32 and 10 bf16 epochs from the port's seeded init, counters set to
      0 just before and read just after (2 K1 a step in f32; 4 K1 + 1 K2 in
      bf16; 1 K1 per evaluation); finite losses; the time and device
@@ -31,7 +22,23 @@ Phases (any failure raises and the script exits non-zero):
      (``prepare_training``); the step time (CUDA events,
      median of 10) and a breakdown by stage; 3 f32 steps with
      ``noise_std=0`` on the card against the same steps on the CPU;
-  6. print the kernels' JSON line, the card line and, last,
+  5. hold each kernel against its plain PyTorch version on the card, in f32
+     and bf16: K1 at the photo serving shapes, on the transposed tile set
+     and on the rectangular sets of the labeled-column subset, at the tile
+     heights 128, 256, 512 and 1024 (the sweep of
+     ``scripts/tile_rows_study.py``, whose kernel is K1's body), and at a
+     small ragged case with an empty tile row; K2 at the photo ``[U × N]``
+     subset shapes of the bf16 trainer and at a small ragged square case
+     with an empty tile row. Time each kernel (device time from
+     ``torch.profiler``), its plain version and one PyTorch library call
+     computing the same function, and compute each kernel's bound from this
+     run's non-zeros (with the bound of the CSR walk the kernels implement
+     beside it, and the bytes the walk gathers through L2);
+  6. profile a request and a train step of each precision: the device
+     time against the wall time (the card's busy share) and the largest
+     kernels; and the step's kernels alone. The profiler runs only after
+     the timed phases 3 and 4, since it adds to the host's launch time;
+  7. print the kernels' JSON line, the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``ggad_tpu``.
@@ -46,6 +53,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 N_H = 300
 REQUESTS = 5
@@ -59,6 +67,8 @@ SCORE_TOL = 1e-4                              # card f32 scores vs the CPU run
 LOSS_TOL = 1e-4                               # card f32 losses vs the CPU run
 KERNEL_SOURCES = ["bcsr_spmm", "bcsr_sddmm"]
 K1_REPLACES = "ggad_tpu/ops/pallas_spmm.py:96"
+STUDY_REPLACES = "scripts/tile_rows_study.py:52"   # K1's body, swept
+SWEEP_TILE_ROWS = (128, 256, 512, 1024)    # tile_rows_study.py:105 + 1024
 K2_REPLACES = "ggad_tpu/ops/pallas_sddmm.py:41"
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
@@ -87,6 +97,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> tuple[float, dict]:
+    """Mean device milliseconds per call: the summed time of every kernel
+    the call puts on the card (``torch.profiler``, CUPTI), free of host
+    launch overhead; and the microseconds per call of each kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {e.key: e.self_device_time_total / iters
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total
+           and not e.is_user_annotation}
+    if not per:
+        raise RuntimeError("the profiler saw no kernel on the card")
+    return sum(per.values()) / 1e3, per
+
+
 def build_kernels() -> None:
     from ggad_tpu_torch.ops import _build
 
@@ -102,56 +136,71 @@ def build_kernels() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.3f} s")
 
 
-def bound_ms(tiles, n_rows: int, dense_bytes: int, d: int, dtype: str,
-             what: str) -> dict:
+def bound_ms(tiles, n_rows: int, dense_bytes: int, design_bytes: int,
+             d: int, dtype: str, what: str) -> dict:
     """Least time for a tile kernel's function on this run's data, the
     larger of its bytes at the memory rate and its operations at the peak
     rate of the type. The function needs the non-zeros in CSR (a value and
     a 4-byte column index each, a 4-byte pointer per row), the dense
     operands and the output once (``dense_bytes``), and 2·d operations per
-    non-zero. Beside it, the bound of the current dense-tile design, which
-    reads every stored entry and does that work for each:
-    ``design_bound_ms``."""
+    non-zero.
+
+    Beside it, ``design_bound_ms``, the bound of the CSR walk the kernel
+    implements: the same operations, and the bytes it moves through device
+    memory, the CSR and ``design_bytes`` (the operands as the caller gives
+    them, the copies the wrapper makes for the kernel written and read,
+    the output). The walk also gathers one operand row per non-zero,
+    nnz·d·item bytes (``gather_mb``), which L2 serves, since the gathered
+    operand fits in it; no published L2 rate bounds those, so the rate the
+    kernel reaches on them is reported instead (``gather_tb_s``)."""
     import torch
 
     t, tr, tc = tiles.values.shape
     item = tiles.values.element_size()
-    nnz = int(torch.count_nonzero(tiles.values))
+    nnz = tiles.col.numel()
+    if nnz != int(torch.count_nonzero(tiles.values)):
+        raise RuntimeError("the CSR does not hold the store's non-zeros")
     sparse_bytes = nnz * (item + 4) + (n_rows + 1) * 4
-    store_bytes = t * tr * tc * item + tiles.tile_cols.numel() * 4 \
-        + tiles.tile_ptr.numel() * 4
     peak = PEAK_FLOPS[dtype] / 1e3
     by_flops = 2.0 * d * nnz / peak
     by_bytes = (sparse_bytes + dense_bytes) / HBM_BYTES_PER_S * 1e3
-    design = max(2.0 * d * t * tr * tc / peak,
-                 (store_bytes + dense_bytes) / HBM_BYTES_PER_S * 1e3)
+    design = max(by_flops, (sparse_bytes + design_bytes)
+                 / HBM_BYTES_PER_S * 1e3)
+    gather = nnz * d * item
     print(f"  {what} bound inputs: T={t} tile={tr}x{tc} nnz={nnz} "
           f"useful GFLOP={2 * d * nnz / 1e9:.4f} MB: CSR non-zeros "
           f"{sparse_bytes / 1e6:.2f} + dense operands and output "
-          f"{dense_bytes / 1e6:.2f}; dense-tile design: GFLOP "
-          f"{2 * d * t * tr * tc / 1e9:.2f}, tile store "
-          f"{store_bytes / 1e6:.1f} MB, bound {design:.4f} ms")
+          f"{dense_bytes / 1e6:.2f} (CSR walk: {design_bytes / 1e6:.2f}, "
+          f"bound {design:.5f} ms); gathered through L2 "
+          f"{gather / 1e6:.1f} MB")
     return {"bound_ms": max(by_flops, by_bytes),
             "bound_by": "operations" if by_flops > by_bytes else "bytes",
-            "design_bound_ms": design}
+            "design_bound_ms": design, "gather_mb": gather / 1e6}
 
 
 def k1_bound_ms(tiles, n: int, d: int, dtype: str) -> dict:
     """K1: A's non-zeros, H (rounded to the tiles' type) and the f32
     output each cross device memory once; a multiply-add per non-zero
-    and column of H."""
-    h_item = 4 if dtype == "float32" else 2
-    return bound_ms(tiles, n, n * d * h_item + n * d * 4, d, dtype, "K1")
+    and column of H. The CSR walk reads H in f32 and, for bf16 tiles,
+    writes and reads its bf16 copy."""
+    copy = 0 if dtype == "float32" else 2 * n * d * 2
+    return bound_ms(tiles, n, n * d * (4 if dtype == "float32" else 2)
+                    + n * d * 4, n * d * 4 + copy + n * d * 4, d, dtype,
+                    "K1")
 
 
 def k2_bound_ms(tiles, e_row, e_col, dtype: str) -> dict:
     """K2: M's non-zeros, E_r, E_c (rounded to the tiles' type) and the
     f32 output each cross device memory once; one dot product of length
-    d per non-zero (its multiply by M and the row sum are lower order)."""
+    d per non-zero (its multiply by M and the row sum are lower order).
+    The CSR walk reads E_r, E_c in f32 and, for bf16 tiles, writes and
+    reads their bf16 copies."""
     item = 4 if dtype == "float32" else 2
     n_r, d = e_row.shape
-    dense = (n_r + e_col.shape[0]) * d * item + n_r * 4
-    return bound_ms(tiles, n_r, dense, d, dtype, "K2")
+    rows = n_r + e_col.shape[0]
+    copy = 0 if dtype == "float32" else 2 * rows * d * 2
+    return bound_ms(tiles, n_r, rows * d * item + n_r * 4,
+                    rows * d * 4 + copy + n_r * 4, d, dtype, "K2")
 
 
 def check_k1(tiles, h, dtype: str, *, n_out=None, timed: bool) -> dict:
@@ -171,11 +220,14 @@ def check_k1(tiles, h, dtype: str, *, n_out=None, timed: bool) -> dict:
     if not timed:
         return rec
     n, d = h.shape
-    rec["ms"] = cuda_ms(lambda: pb.bcsr_matmul(tiles, h), iters=20)
+    rec["ms"], per = device_ms(lambda: pb.bcsr_matmul(tiles, h))
+    rec["call_ms"] = cuda_ms(lambda: pb.bcsr_matmul(tiles, h), iters=20)
     rec["plain_ms"] = cuda_ms(lambda: pb.bcsr_spmm_plain(tiles, h),
                               iters=3, warmup=1)
     rec.update(k1_bound_ms(tiles, n, d, dtype))
+    rec["gather_tb_s"] = rec["gather_mb"] / rec["ms"] / 1e6
     rec["library_ms"], lib_err = library_spmm_ms(tiles, h, dtype, out)
+    print(f"  device us per call by kernel: {json.dumps(per)}")
     print(f"  library (torch.sparse.mm, CSR) vs kernel max|d| {lib_err:.3g}")
     return rec
 
@@ -203,7 +255,7 @@ def library_spmm_ms(tiles, h, dtype: str, out) -> tuple[float, float]:
     hl = h if dtype == "float32" else h.to(torch.bfloat16).float()
     ref = torch.sparse.mm(csr, hl)
     err = (ref - out).abs().max().item()
-    return cuda_ms(lambda: torch.sparse.mm(csr, hl), iters=20), err
+    return device_ms(lambda: torch.sparse.mm(csr, hl))[0], err
 
 
 def library_sddmm_ms(tiles, e_row, e_col, dtype: str, out
@@ -237,7 +289,7 @@ def library_sddmm_ms(tiles, e_row, e_col, dtype: str, out
             0, row_of, dots.values() * csr.values())
 
     err = (call() - out[:n_r]).abs().max().item()
-    return cuda_ms(call, iters=20), err
+    return device_ms(call)[0], err
 
 
 def check_k2(tiles, e_row, e_col, dtype: str, *, timed: bool) -> dict:
@@ -257,12 +309,16 @@ def check_k2(tiles, e_row, e_col, dtype: str, *, timed: bool) -> dict:
     rec = {"max_abs_err": err}
     if not timed:
         return rec
-    rec["ms"] = cuda_ms(lambda: pk2.sddmm_colsum(tiles, e_row, e_col),
-                        iters=20)
+    rec["ms"], per = device_ms(
+        lambda: pk2.sddmm_colsum(tiles, e_row, e_col))
+    rec["call_ms"] = cuda_ms(lambda: pk2.sddmm_colsum(tiles, e_row, e_col),
+                             iters=20)
     rec["plain_ms"] = cuda_ms(
         lambda: pk2.bcsr_sddmm_colsum_plain(tiles, e_row, e_col), iters=3,
         warmup=1)
     rec.update(k2_bound_ms(tiles, e_row, e_col, dtype))
+    rec["gather_tb_s"] = rec["gather_mb"] / rec["ms"] / 1e6
+    print(f"  device us per call by kernel: {json.dumps(per)}")
     rec["library_ms"], lib = library_sddmm_ms(tiles, e_row, e_col, dtype,
                                               out)
     print(f"  library (sampled_addmm + row sum, f32) vs kernel max|d| "
@@ -290,8 +346,33 @@ def labeled(ds):
                            np.asarray(ds.abnormal_label_idx, np.int64)])
 
 
-def kernel_phase(cuda) -> tuple[dict, dict]:
-    """Phase 3: K1 and K2 at the photo shapes and at small ragged cases."""
+def tile_rows_sweep(adj, h, dtype: str) -> list:
+    """K1 on the photo forward tiles at each height of the study's sweep,
+    held against its plain version; prints what the study printed
+    (``tile_rows_study.py:188-195``), the kernel's time from the card."""
+    from ggad_tpu_torch.ops import bcsr_spmm as pb
+
+    rows = []
+    for tr in SWEEP_TILE_ROWS:
+        tiles = pb.as_bcsr_graph(adj, dtype=dtype, tile_rows=tr,
+                                 transpose=False).tiles.fwd
+        err = check_k1(tiles, h, dtype, timed=False)["max_abs_err"]
+        ms, _ = device_ms(lambda: pb.bcsr_matmul(tiles, h))
+        v = tiles.values
+        rows.append({"tile_rows": tr, "n_tiles": tiles.n_tiles,
+                     "tile_store_MB": round(v.numel() * v.element_size()
+                                            / 2 ** 20, 1),
+                     "spmm_ms": ms,
+                     "edges_per_tile": round(adj.n_edges / tiles.n_tiles, 1),
+                     "max_abs_err": err})
+        print(f"  K1 tile-height sweep {dtype}: {json.dumps(rows[-1])}")
+        del tiles, v
+    return rows
+
+
+def kernel_phase(cuda, k1: dict, k2: dict) -> None:
+    """Phase 5: K1 and K2 at the photo shapes and at small ragged cases;
+    adds each kernel's record to ``k1``/``k2`` (by dtype)."""
     import torch
 
     from ggad_tpu_torch.datasets.synthetic import photo_bench
@@ -305,7 +386,6 @@ def kernel_phase(cuda) -> tuple[dict, dict]:
     )
 
     gen = torch.Generator(cuda).manual_seed(0)
-    k1, k2 = {}, {}
     ds = photo_bench()
     adj, raw = normalize_adj_reference(from_scipy(ds.adj, device=cuda))
     h = torch.randn(ds.n_nodes, N_H, device=cuda, generator=gen)
@@ -316,7 +396,7 @@ def kernel_phase(cuda) -> tuple[dict, dict]:
         fwd = pair.fwd
         print(f"K1 photo {dtype}: T={fwd.n_tiles} tr={fwd.tile_height} "
               f"{fwd.n_rows}x{fwd.n_cols} d={N_H}")
-        k1[dtype] = check_k1(fwd, h, dtype, timed=True)
+        k1[dtype].update(check_k1(fwd, h, dtype, timed=True))
         print("  " + json.dumps(k1[dtype]))
         errs = [check_k1(pair.bwd, h, dtype, timed=False)["max_abs_err"]]
         sub = tile_affinity_subset(raw, labeled(ds), dtype=dtype)
@@ -329,12 +409,16 @@ def kernel_phase(cuda) -> tuple[dict, dict]:
         print(f"K1 photo {dtype} transposed / rect [U x N] / rect [N x U] "
               f"(U={u}): max|d| {errs}")
         k1[dtype]["max_abs_err"] = max([k1[dtype]["max_abs_err"], *errs])
+        k1[dtype]["tile_rows_sweep"] = tile_rows_sweep(adj, h, dtype)
+        k1[dtype]["max_abs_err"] = max(
+            k1[dtype]["max_abs_err"],
+            *(r["max_abs_err"] for r in k1[dtype]["tile_rows_sweep"]))
 
         b = sub.pair.bwd
         print(f"K2 photo {dtype} [U x N]: T={b.n_tiles} tr={b.tile_height} "
               f"{b.n_rows}x{b.n_cols} U={u} d={N_H}")
         tgt = emb_n[sub.uniq].contiguous()
-        k2[dtype] = check_k2(b, tgt, emb_n, dtype, timed=True)
+        k2[dtype].update(check_k2(b, tgt, emb_n, dtype, timed=True))
         print("  " + json.dumps(k2[dtype]))
 
     g = small_ragged_graph(cuda)
@@ -356,7 +440,6 @@ def kernel_phase(cuda) -> tuple[dict, dict]:
               f"{e2:.3g}")
         k1[dtype]["max_abs_err"] = max(k1[dtype]["max_abs_err"], e1)
         k2[dtype]["max_abs_err"] = max(k2[dtype]["max_abs_err"], e2)
-    return k1, k2
 
 
 def stage_breakdown(scorer) -> dict:
@@ -383,8 +466,9 @@ def stage_breakdown(scorer) -> dict:
     return stages
 
 
-def serving_phase(cuda, k1: dict) -> None:
-    """Phase 4: Scorer requests at full width, launches counted."""
+def serving_phase(cuda, k1: dict, later: list) -> None:
+    """Phase 3: Scorer requests at full width, launches counted; appends
+    to ``later`` the profiled lines, printed after the timed phases."""
     import numpy as np
     import torch
 
@@ -403,7 +487,7 @@ def serving_phase(cuda, k1: dict) -> None:
                     generator=torch.Generator().manual_seed(0))
         Checkpointer(ckpt_dir).save(0, {"params": init.state_dict(),
                                         "epoch": 0})
-        scores = {}
+        scores, scorers = {}, {}
         for dtype in ("float32", "bfloat16"):
             scorer = None
             base = torch.cuda.memory_allocated()
@@ -449,8 +533,12 @@ def serving_phase(cuda, k1: dict) -> None:
                   f"AP {res.ap:.6f}; K1 launches {launches}")
             print(f"  eval forward by stage (ms, CUDA events): "
                   f"{json.dumps(stage_breakdown(scorer))}")
+            scorers[dtype] = (scorer, statistics.median(lat))
 
         cpu = Scorer(ckpt_dir, ds, embedding_dim=N_H, device="cpu").score()
+        later.extend(partial(busy_line, f"serve request {dtype}", sc.score,
+                             wall, REQUESTS)
+                     for dtype, (sc, wall) in scorers.items())
     diff = np.abs(scores["float32"].scores - cpu.scores).max()
     np.testing.assert_allclose(scores["float32"].scores, cpu.scores,
                                rtol=SCORE_TOL, atol=SCORE_TOL)
@@ -462,12 +550,9 @@ def serving_phase(cuda, k1: dict) -> None:
 
 def train_stages(tr, gen, reps: int = 5) -> dict:
     """CUDA-event times of one train step by stage (median of ``reps``
-    steps), and of the step's kernels alone at its shapes (mean of 10)."""
+    steps)."""
     import torch
 
-    from ggad_tpu_torch.ops import bcsr_spmm as pb
-    from ggad_tpu_torch.ops.bcsr_sddmm import sddmm_colsum
-    from ggad_tpu_torch.ops.sddmm import TileAffinitySubset, l2_normalize_rows
     from ggad_tpu_torch.train.losses import ggad_losses
 
     names = ["forward", "loss", "backward", "adam"]
@@ -491,32 +576,58 @@ def train_stages(tr, gen, reps: int = 5) -> dict:
         ev[4].record()
         torch.cuda.synchronize()
         rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
-    stages = {n: statistics.median(r[i] for r in rows)
-              for i, n in enumerate(names)}
+    return {n: statistics.median(r[i] for r in rows)
+            for i, n in enumerate(names)}
 
+
+def step_kernels_line(dtype: str, tr, gen) -> str:
+    """Device time of the train step's kernels alone at its shapes
+    (``device_ms``, mean of 10 calls)."""
+    import torch
+
+    from ggad_tpu_torch.ops import bcsr_spmm as pb
+    from ggad_tpu_torch.ops.bcsr_sddmm import sddmm_colsum
+    from ggad_tpu_torch.ops.sddmm import TileAffinitySubset, l2_normalize_rows
+
+    stages = {}
     n = tr.dataset.n_nodes
     pair = tr.adj.tiles
     h = torch.randn(n, N_H, device=tr.device, generator=gen)
-    stages["K1 forward (gcn2, tiles)"] = cuda_ms(
-        lambda: pb.bcsr_matmul(pair.fwd, h), iters=10)
-    stages["K1 backward (transposed tiles)"] = cuda_ms(
-        lambda: pb.bcsr_matmul(pair.bwd, h), iters=10)
+    stages["K1 forward (gcn2, tiles)"] = device_ms(
+        lambda: pb.bcsr_matmul(pair.fwd, h), iters=10)[0]
+    stages["K1 backward (transposed tiles)"] = device_ms(
+        lambda: pb.bcsr_matmul(pair.bwd, h), iters=10)[0]
     if isinstance(tr.aff_sub, TileAffinitySubset):
         sub = tr.aff_sub
         e = l2_normalize_rows(h)
         tgt = e[sub.uniq].contiguous()
         g = torch.randn(sub.n_uniq, N_H, device=tr.device, generator=gen)
-        stages["K2 (margin affinity, [U x N])"] = cuda_ms(
-            lambda: sddmm_colsum(sub.pair.bwd, tgt, e), iters=10)
-        stages["K2's two K1 (rect sets)"] = cuda_ms(
+        stages["K2 (margin affinity, [U x N])"] = device_ms(
+            lambda: sddmm_colsum(sub.pair.bwd, tgt, e), iters=10)[0]
+        stages["K2's two K1 (rect sets)"] = device_ms(
             lambda: (pb.bcsr_matmul(sub.pair.bwd, e, sub.n_uniq),
-                     pb.bcsr_matmul(sub.pair.fwd, g, n)), iters=10)
-    return stages
+                     pb.bcsr_matmul(sub.pair.fwd, g, n)), iters=10)[0]
+    return (f"  train {dtype} kernels alone at the step's shapes (ms, "
+            f"device): {json.dumps(stages)}")
 
 
-def training_phase(cuda, k1: dict, k2: dict) -> None:
-    """Phase 5: ``FullBatchTrainer.train`` at full width, launches counted
-    exactly; step time and stages; f32 card losses against the CPU."""
+def busy_line(what: str, fn, wall_ms: float, iters: int) -> str:
+    """The device time of ``iters`` calls of ``fn`` (``device_ms``) against
+    their median wall time: the card's busy share, and its largest
+    kernels."""
+    dev, per = device_ms(fn, iters=iters)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    return (f"  {what}: device time {dev:.4f} ms a call against a median of "
+            f"{wall_ms:.3f} ms, busy share {dev / wall_ms:.3f}; largest "
+            f"kernels (us a call) "
+            f"{json.dumps({k[:60]: round(v, 2) for k, v in top})}")
+
+
+def training_phase(cuda, k1: dict, k2: dict, later: list) -> None:
+    """Phase 4: ``FullBatchTrainer.train`` at full width, launches counted
+    exactly; step time and stages; f32 card losses against the CPU;
+    appends to ``later`` the profiled lines, printed after the timed
+    phases."""
     import math
 
     import torch
@@ -594,6 +705,10 @@ def training_phase(cuda, k1: dict, k2: dict) -> None:
               f"(median {statistics.median(steps):.3f})")
         print(f"  step by stage (ms, CUDA events): "
               f"{json.dumps(train_stages(tr, gen))}")
+        later.append(partial(busy_line, f"train step {dtype}",
+                             partial(tr.train_step, gen),
+                             statistics.median(steps), EPOCHS))
+        later.append(partial(step_kernels_line, dtype, tr, gen))
 
     # 3 f32 steps, noise_std=0, the same init on the card and on the CPU
     card_cpu = {}
@@ -619,13 +734,20 @@ def training_phase(cuda, k1: dict, k2: dict) -> None:
 
 def kernel_record(name, source, replaces, rec) -> dict:
     paths = rec.get("paths", {})
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(paths.values()),
-            "launches_by_path": paths, "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "design_bound_ms": rec["design_bound_ms"],
-            "library_ms": rec["library_ms"]}
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": sum(paths.values()),
+           "launches_by_path": paths, "max_abs_err": rec["max_abs_err"],
+           "ms": rec["ms"], "call_ms": rec["call_ms"],
+           "plain_ms": rec["plain_ms"],
+           "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+           "design_bound_ms": rec["design_bound_ms"],
+           "gather_mb": rec["gather_mb"], "gather_tb_s": rec["gather_tb_s"],
+           "library_ms": rec["library_ms"]}
+    if "tile_rows_sweep" in rec:
+        out["also_replaces"] = [STUDY_REPLACES]
+        out["tile_rows_sweep"] = {r["tile_rows"]: r["spmm_ms"]
+                                  for r in rec["tile_rows_sweep"]}
+    return out
 
 
 def main() -> int:
@@ -648,9 +770,16 @@ def main() -> int:
     t_start = time.perf_counter()
 
     build_kernels()
-    k1, k2 = kernel_phase(cuda)
-    serving_phase(cuda, k1)
-    training_phase(cuda, k1, k2)
+    # the end-to-end phases first: they are timed with CUDA events and the
+    # host clock, before any profiler session adds its launch overhead
+    k1 = {"float32": {}, "bfloat16": {}}
+    k2 = {"float32": {}, "bfloat16": {}}
+    later = []
+    serving_phase(cuda, k1, later)
+    training_phase(cuda, k1, k2, later)
+    kernel_phase(cuda, k1, k2)
+    for line in later:
+        print(line())
 
     kernels = [kernel_record(f"bcsr_spmm_{SHORT[dtype]}",
                              "ggad_tpu_torch/csrc/bcsr_spmm.cu", K1_REPLACES,

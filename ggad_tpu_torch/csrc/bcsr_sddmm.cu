@@ -1,191 +1,180 @@
-// Block-sparse SDDMM row sums for Hopper:
-//   out[r] = Σ_c M[r,c]·⟨E_r[r], E_c[c]⟩.
+// CSR-walk SDDMM row sums for Hopper:
+//   out[r] = Σ_c M[r,c]·⟨E_r[r], E_c[c]⟩ over the non-zeros of a tile store.
 //
 // Replaces the Pallas TPU kernel K2, ggad_tpu/ops/pallas_sddmm.py
-// `_sddmm_colsum_kernel` (launched by `_sddmm_colsum_raw`). M is stored as T
-// tiles of tr × 128 values, sorted by (tile_row, tile_col); tile t covers
-// rows tile_rows[t]·tr .. +tr and columns tile_cols[t]·128 .. +128. On the
+// `_sddmm_colsum_kernel` (launched by `_sddmm_colsum_raw`). On the
 // transposed tile set of an adjacency the row sums are the adjacency's
-// column sums: GGAD's affinity numerator Σ_i a_ij⟨n_i, n_j⟩.
+// column sums: GGAD's affinity numerator Σ_i a_ij⟨n_i, n_j⟩. The TPU kernel
+// forms the dense tr × 128 block of dot products of every stored tile on
+// the MXU. Here the kernel walks only the stored non-zeros, kept beside the
+// tiles in compressed rows (row_ptr, col, val; ops/bcsr_spmm.py::tile_csr,
+// derived from the stored values when the tiles are built).
 //
-// Design. The Pallas grid walks the tiles in order and adds each tile's row
-// sums into an output block it zeroes when the tile row changes. Here each
-// CTA owns a 64-row slice of one tile row and walks that row's tiles through
-// the host-built tile_ptr (tile_ptr[r] .. tile_ptr[r+1]). For each tile it
-// stages 64 × 32 of E_r and 128 × 32 of E_c in shared memory, chunk by chunk
-// over d, and forms the 64 × 128 block of dot products in fp32 registers
-// (4 × 8 a thread, 256 threads). It then multiplies by the tile's entries,
-// sums each thread's 8 columns and reduces the 16 threads of a row with warp
-// shuffles. Each row's sum over tiles stays in a register and is written
-// once at the end: no atomics, and the JAX order over tiles is kept. A row
-// with no tiles writes 0, so the output can be torch.empty. Rows of E_r or
-// E_c past their real count read as zero, and d is masked in the kernel, so
-// the wrapper needs no padded copies.
+// What bounds it on the H100. The work is one dot product of length d per
+// non-zero (2·nnz·d: 38 MFLOP on the photo-shaped graph's labeled-column
+// [U × N] set, 62,993 non-zeros); a tensor-core tile of M would hold about
+// one useful entry in 130, so tensor cores do not help. The walk gathers
+// one row of E_c per non-zero (nnz·d·item: 76 MB f32, 38 MB bf16 there)
+// from L2, where E_c stays (9.0 / 4.5 MB), and that set has only U = 1,027
+// rows: with one warp a row that is 8 warps an SM, too few to hide the
+// gathers' latency.
 //
-// Numerics. f32 uses IEEE fp32 FMAs (no TF32), matching the
-// Precision.HIGHEST product of the TPU kernel. bf16 reads bf16 tiles and
-// E_r, E_c that the wrapper cast to bf16 (as pallas_sddmm.py:79-83 does);
-// each bf16 × bf16 product is exact in fp32 and the sums are fp32.
+// Design. One CTA of kRowWarps = 4 warps per row of M; the row's non-zeros
+// are split into 4 contiguous parts, one a warp (on an H100 at photo
+// shapes, faster than one, two or eight warps a row on the [U × N] set
+// and than one warp a row on the square set). Each warp keeps
+// its lanes' slice of E_r[r] in registers as 16-byte chunks (4 f32 or 8
+// bf16 columns a lane), stages its part's (column, value) pairs 32 at a
+// time and broadcasts them with __shfl_sync, gathers the E_c rows of
+// kUnroll non-zeros at once with 16-byte __ldg loads, and adds
+// m · ⟨E_r slice, E_c slice⟩ into one f32 accumulator a lane. Each warp
+// reduces its lanes once, with shuffles; warp 0's first lane adds the 4
+// warp sums from shared memory in order and writes the row once: no
+// atomics. A row with no non-zeros, and a row past E_r's count, writes 0,
+// so the output can be torch.empty. Columns ≥ ec_rows read as zero. Rows
+// ≥ out_rows are not written.
 //
-// What bounds it on the card. The work the data needs is one dot product of
-// length d per non-zero of M (2·nnz·d operations) and each input read once;
-// on GGAD's labeled-column subset of the photo-shaped graph that is bound by
-// bytes (the tile store). This dense-tile design instead multiplies every
-// stored entry, zero or not (2·T·tr·128·d operations on the CUDA cores), and
-// only (n_rows / 64) CTAs run, so it is bound by operations on a fraction of
-// the card. Skipping all-zero sub-blocks, wgmma and TMA are later work.
-//
-// Offsets into the tile store and the operands are 64-bit.
+// Numerics. f32: IEEE FMAs, no TF32. bf16: bf16 values and E_r, E_c that
+// the wrapper rounded to bf16 (as pallas_sddmm.py:79-83 does); each product
+// is exact in f32 and every sum is f32. The sums run in another order than
+// the TPU kernel's and the plain version's (lane slices, then non-zeros,
+// then lanes and warps), hence the stated tolerances: 1e-5 f32, 1e-4 bf16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "csr_walk.cuh"
 
 namespace {
 
-constexpr int kTileCols = 128;  // tile width: columns of M, rows of E_c
-constexpr int kBM = 64;         // rows of a tile row per CTA
-constexpr int kBK = 32;         // depth of d staged in shared memory per step
-constexpr int kThreads = 256;   // 16 × 16 threads
-constexpr int kTM = 4;          // rows per thread: ty + 16·i
-constexpr int kTN = 8;          // columns per thread: tx + 16·j
+using namespace csr_walk;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int kRowWarps = 4;  // warps per row of M (one CTA)
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bcsr_sddmm_kernel(const T* __restrict__ values,
-                  const int32_t* __restrict__ tile_cols,
-                  const int32_t* __restrict__ tile_ptr,
-                  const T* __restrict__ e_row, const T* __restrict__ e_col,
-                  float* __restrict__ out, int tr, int d, int er_rows,
-                  int ec_rows, int out_rows) {
-  // k-major with one pad column, so that the transposing stores
-  // (consecutive threads on consecutive k) hit distinct banks.
-  __shared__ float Rs[kBK][kBM + 1];
-  __shared__ float Cs[kBK][kTileCols + 1];
+template <typename T, int NC>
+__global__ void __launch_bounds__(32 * kRowWarps)
+csr_sddmm_kernel(const int32_t* __restrict__ row_ptr,
+                 const int32_t* __restrict__ col, const T* __restrict__ val,
+                 const T* __restrict__ e_row, const T* __restrict__ e_col,
+                 float* __restrict__ out, int d, int ld, int er_rows,
+                 int ec_rows) {
+  constexpr int V = Vec16<T>::kN;
+  constexpr int kGroup = NC * 32 * V;  // columns a pass over the row covers
+  __shared__ float warp_sum[kRowWarps];
+  const int r = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
 
-  const int blocks_per_tile_row = tr / kBM;
-  const int tile_row = blockIdx.x / blocks_per_tile_row;
-  const int m0 = (blockIdx.x % blocks_per_tile_row) * kBM;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int64_t row0 = (int64_t)tile_row * tr + m0;
+  const int begin = row_ptr[r];
+  const int len = row_ptr[r + 1] - begin;
+  const int part = (len + kRowWarps - 1) / kRowWarps;
+  const int wb = begin + min(len, w * part);
+  const int we = begin + min(len, (w + 1) * part);
 
-  float row_sum[kTM];
+  float lane_acc = 0.f;
+  if (r < er_rows) {
+    for (int g0 = 0; g0 < ld; g0 += kGroup) {
+      const int c_lane = g0 + lane * V;
+      float a[NC][V];
+      load_row<T, NC>(e_row, r, ld, c_lane, a);
+      for (int k0 = wb; k0 < we; k0 += 32) {
+        int my_c;
+        float my_v;
+        stage(col, val, k0, we, lane, ec_rows, my_c, my_v);
+        const int cnt = min(32, we - k0);
+        for (int j0 = 0; j0 < cnt; j0 += kUnroll) {
+          float x[kUnroll][NC][V];
+          float v[kUnroll];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) row_sum[i] = 0.f;
-
-  const int t_begin = tile_ptr[tile_row];
-  const int t_end = tile_ptr[tile_row + 1];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int64_t c0 = (int64_t)tile_cols[t] * kTileCols;
-    float acc[kTM][kTN];
+          for (int u = 0; u < kUnroll; ++u) {
+            const int c = __shfl_sync(kFull, my_c, j0 + u);
+            v[u] = __shfl_sync(kFull, my_v, j0 + u);
+            load_row<T, NC>(e_col, c, ld, c_lane, x[u]);
+          }
 #pragma unroll
-    for (int i = 0; i < kTM; ++i)
+          for (int u = 0; u < kUnroll; ++u) {
+            float p = 0.f;
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += kBK) {
-      for (int i = tid; i < kBM * kBK; i += kThreads) {
-        const int m = i / kBK;
-        const int k = i % kBK;
-        const int64_t r = row0 + m;
-        Rs[k][m] = (r < er_rows && k0 + k < d)
-                       ? to_f32(e_row[r * d + k0 + k]) : 0.f;
+            for (int j = 0; j < NC; ++j)
+#pragma unroll
+              for (int e = 0; e < V; ++e)  // columns d .. ld are unset
+                if (c_lane + j * 32 * V + e < d)
+                  p = __fmaf_rn(a[j][e], x[u][j][e], p);
+            lane_acc = __fmaf_rn(v[u], p, lane_acc);
+          }
+        }
       }
-      for (int i = tid; i < kTileCols * kBK; i += kThreads) {
-        const int c = i / kBK;
-        const int k = i % kBK;
-        const int64_t r = c0 + c;
-        Cs[k][c] = (r < ec_rows && k0 + k < d)
-                       ? to_f32(e_col[r * d + k0 + k]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        float a[kTM];
-        float b[kTN];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) a[i] = Rs[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) b[j] = Cs[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j)
-            acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // M ∘ (E_r E_cᵀ), summed over the tile's 128 columns. The 16 threads
-    // of a row are 16 consecutive lanes of one warp (tid = 16·ty + tx).
-    const T* m_blk = values + (int64_t)t * tr * kTileCols
-                     + (int64_t)m0 * kTileCols;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const T* m_row = m_blk + (int64_t)(ty + 16 * i) * kTileCols;
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        s = __fmaf_rn(to_f32(m_row[tx + 16 * j]), acc[i][j], s);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off, 16);
-      row_sum[i] += s;
     }
   }
 
-  if (tx == 0) {
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int64_t r = row0 + ty + 16 * i;
-      if (r < out_rows) out[r] = row_sum[i];
-    }
+  for (int off = 16; off > 0; off >>= 1)
+    lane_acc += __shfl_xor_sync(kFull, lane_acc, off);
+  if (lane == 0) warp_sum[w] = lane_acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRowWarps; ++i) s += warp_sum[i];
+    out[r] = s;
   }
 }
 
-template <typename T>
-int launch(const void* values, const void* tile_cols, const void* tile_ptr,
-           const void* e_row, const void* e_col, void* out, int n_tile_rows,
-           int tr, int d, int er_rows, int ec_rows, int out_rows,
-           void* stream) {
-  if (tr <= 0 || tr % kBM != 0 || d <= 0 || n_tile_rows <= 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)n_tile_rows * (tr / kBM));
-  bcsr_sddmm_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)values, (const int32_t*)tile_cols, (const int32_t*)tile_ptr,
-      (const T*)e_row, (const T*)e_col, (float*)out, tr, d, er_rows, ec_rows,
-      out_rows);
+template <typename T, int NC>
+int launch_nc(const void* row_ptr, const void* col, const void* val,
+              const void* e_row, const void* e_col, void* out, int out_rows,
+              int d, int ld, int er_rows, int ec_rows,
+              cudaStream_t stream) {
+  static bool carveout_set = false;  // give the SM's memory to L1
+  if (!carveout_set) {
+    cudaFuncSetAttribute(csr_sddmm_kernel<T, NC>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+    carveout_set = true;
+  }
+  csr_sddmm_kernel<T, NC><<<(unsigned)out_rows, 32 * kRowWarps, 0, stream>>>(
+      (const int32_t*)row_ptr, (const int32_t*)col, (const T*)val,
+      (const T*)e_row, (const T*)e_col, (float*)out, d, ld, er_rows,
+      ec_rows);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* row_ptr, const void* col, const void* val,
+           const void* e_row, const void* e_col, void* out, int out_rows,
+           int d, int ld, int er_rows, int ec_rows, void* stream) {
+  constexpr int kChunk = 32 * Vec16<T>::kN;
+  if (out_rows <= 0 || d <= 0 || ld < d || ld % Vec16<T>::kN != 0 ||
+      ((uintptr_t)e_row & 15) != 0 || ((uintptr_t)e_col & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // all of a row's chunks in one pass where there are at most 4
+  const int n_chunks = (ld + kChunk - 1) / kChunk;
+  switch (n_chunks < 4 ? n_chunks : 4) {
+    case 1: return launch_nc<T, 1>(row_ptr, col, val, e_row, e_col, out, out_rows, d, ld, er_rows, ec_rows, s);
+    case 2: return launch_nc<T, 2>(row_ptr, col, val, e_row, e_col, out, out_rows, d, ld, er_rows, ec_rows, s);
+    case 3: return launch_nc<T, 3>(row_ptr, col, val, e_row, e_col, out, out_rows, d, ld, er_rows, ec_rows, s);
+    default: return launch_nc<T, 4>(row_ptr, col, val, e_row, e_col, out, out_rows, d, ld, er_rows, ec_rows, s);
+  }
 }
 
 }  // namespace
 
 // Plain C entries for ctypes. Pointers are device pointers; the stream is
-// PyTorch's current stream. Each returns cudaGetLastError() after the
-// launch (0 = launched).
-extern "C" int bcsr_sddmm_f32(const void* values, const void* tile_cols,
-                              const void* tile_ptr, const void* e_row,
-                              const void* e_col, void* out, int n_tile_rows,
-                              int tr, int d, int er_rows, int ec_rows,
-                              int out_rows, void* stream) {
-  return launch<float>(values, tile_cols, tile_ptr, e_row, e_col, out,
-                       n_tile_rows, tr, d, er_rows, ec_rows, out_rows,
-                       stream);
+// PyTorch's current stream. e_row is [er_rows, ld] and e_col [ec_rows, ld]
+// in the store's dtype, d columns each (ld ≥ d, a whole number of 16-byte
+// vectors; columns d .. ld are not read as values); out is [out_rows] f32.
+// Each returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int bcsr_sddmm_f32(const void* row_ptr, const void* col,
+                              const void* val, const void* e_row,
+                              const void* e_col, void* out, int out_rows,
+                              int d, int ld, int er_rows, int ec_rows,
+                              void* stream) {
+  return launch<float>(row_ptr, col, val, e_row, e_col, out, out_rows, d,
+                       ld, er_rows, ec_rows, stream);
 }
 
-extern "C" int bcsr_sddmm_bf16(const void* values, const void* tile_cols,
-                               const void* tile_ptr, const void* e_row,
-                               const void* e_col, void* out, int n_tile_rows,
-                               int tr, int d, int er_rows, int ec_rows,
-                               int out_rows, void* stream) {
-  return launch<__nv_bfloat16>(values, tile_cols, tile_ptr, e_row, e_col,
-                               out, n_tile_rows, tr, d, er_rows, ec_rows,
-                               out_rows, stream);
+extern "C" int bcsr_sddmm_bf16(const void* row_ptr, const void* col,
+                               const void* val, const void* e_row,
+                               const void* e_col, void* out, int out_rows,
+                               int d, int ld, int er_rows, int ec_rows,
+                               void* stream) {
+  return launch<__nv_bfloat16>(row_ptr, col, val, e_row, e_col, out,
+                               out_rows, d, ld, er_rows, ec_rows, stream);
 }

@@ -1,166 +1,156 @@
-// Block-sparse (BCSR) SpMM for Hopper: out = M · H over tile-COO tiles.
+// CSR-walk SpMM for Hopper: out = M · H over the non-zeros of a tile store.
 //
 // Replaces the Pallas TPU kernel K1, ggad_tpu/ops/pallas_spmm.py
-// `_bcsr_matmul_kernel` (launched by `_bcsr_matmul_raw`). M is stored as T
-// tiles of tr × 128 values, sorted by (tile_row, tile_col); tile t covers
-// rows tile_rows[t]·tr .. +tr and columns tile_cols[t]·128 .. +128.
+// `_bcsr_matmul_kernel` (launched by `_bcsr_matmul_raw`), and its study
+// copy scripts/tile_rows_study.py `make_matmul.kernel`. The TPU kernel
+// multiplies every stored tr × 128 tile on the MXU. Here the kernel walks
+// only the stored non-zeros: the tile store keeps them beside the tiles in
+// compressed rows (row_ptr, col, val; ops/bcsr_spmm.py::tile_csr), derived
+// from the stored values once, when the tiles are built, so the kernel
+// reads exactly the values the tiles hold (duplicates summed, bf16-rounded)
+// and, within a row, the columns ascend.
 //
-// Design. The Pallas grid walks the tiles in order on one core and carries
-// the accumulator from one grid step to the next. Here the host builds a
-// tile-row pointer array (tile_ptr[r] .. tile_ptr[r+1] are the tiles of
-// tile row r) and each CTA owns one (64-row block of a tile row, 64-column
-// block of d) output block. The CTA walks its tile row's tiles in order,
-// stages a 64×32 slice of the A tile and the matching 32×64 slice of the
-// H slab in shared memory, and accumulates in fp32 registers (4×4 outputs
-// a thread, 256 threads). It writes its block once: no atomics, and the
-// JAX accumulation order over tiles is kept. A tile row with no tiles
-// writes zeros, so every output element is written.
+// What bounds it on the H100. At the 0.75% density of the photo-shaped
+// graph a 64-row wgmma/mma tile of M holds about one useful product in
+// 130, so tensor cores would spend almost all their work on zeros; the
+// useful work (2·nnz·d, 0.28 GFLOP) is microseconds on the CUDA cores and
+// the bytes the function must move are a few MB. What bounds a walk over
+// the non-zeros is the gather of one row of H per non-zero, nnz·d·item
+// bytes (557 MB f32, 278 MB bf16 on photo), which come from L2 (H is
+// 9.0 MB f32 / 4.5 MB bf16 and stays in the 50 MB L2), and the latency of
+// those gathers, hidden only by the warps and loads in flight.
 //
-// Numerics. f32 mode uses IEEE fp32 FMAs (no TF32), matching the
-// Precision.HIGHEST product of the TPU kernel. bf16 mode reads bf16 tiles
-// and an H the wrapper has cast to bf16 (as pallas_spmm.py:135-140 does);
-// each bf16 × bf16 product is exact in fp32 and the sum is fp32.
+// Design. One warp per (output row, column chunk); a chunk is one 16-byte
+// load a lane (4 f32 or 8 bf16 columns), 128 / 256 columns a warp, so d 300
+// is 3 warps a row in f32 and 2 in bf16, and even the 1,027 rows of a
+// labeled-column set make thousands of warps. The warp stages its row's
+// (column, value) pairs 32 at a time with coalesced loads and broadcasts
+// each with __shfl_sync; it gathers the H rows of kUnroll non-zeros at
+// once with 16-byte __ldg loads and keeps its accumulators in registers.
+// (On an H100 at photo shapes one chunk a warp was faster than a whole row
+// a warp, in both types.) No shared memory (the SM's memory goes to L1,
+// which catches gathers that repeat), no atomics: each output element is
+// written once. A row with
+// no non-zeros (cover and padding tiles, empty tile rows) writes zeros, so
+// the output can be torch.empty. Columns ≥ h_rows read as zero
+// (rectangular sets).
 //
-// What bounds it on the card. On the photo-shaped graph the whole tile
-// store is multiplied (2·T·tr·128·d = 37.1 GFLOP) although only 0.75% of
-// it is non-zero (0.28 GFLOP of useful work). For the work the data needs
-// the bound is bytes: the 247.5 MB f32 store read once at 3.35 TB/s,
-// ≈0.08 ms (≈0.04 ms for the bf16 store). This dense-tile design instead
-// is bound by operations: ≈0.55 ms at the 67 TFLOP/s fp32 rate of the
-// CUDA cores, and its simple shared-memory tiling reaches a fraction of
-// that rate. bf16 also runs fp32 FMAs on the CUDA cores. Skipping
-// all-zero sub-blocks, wgmma and TMA pipelining are later work.
+// Numerics. f32: IEEE __fmaf_rn in ascending column order, no TF32. For
+// finite inputs this is the per-element FMA chain of the dense-tile loop,
+// since fma(0, b, acc) = acc. bf16: bf16 values times H rounded to bf16 by
+// the wrapper (as pallas_spmm.py:135-140 does); each product is exact in
+// f32 and the sums are f32.
 //
-// Offsets into the tile store are 64-bit: t·tr·128 passes 2^31 at 16,384
-// tiles of height 1024.
+// Offsets into H and out are 64-bit; nnz and row counts fit int32 (the
+// wrapper checks).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "csr_walk.cuh"
 
 namespace {
 
-constexpr int kTileCols = 128;  // tile width: columns of A, rows of an H slab
-constexpr int kBM = 64;         // output rows per CTA
-constexpr int kBN = 64;         // output columns per CTA
-constexpr int kBK = 32;         // depth staged in shared memory per step
-constexpr int kThreads = 256;   // 16 × 16 threads, 4 × 4 outputs each
-constexpr int kTM = 4;
-constexpr int kTN = 4;
+using namespace csr_walk;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int kWarps = 8;  // warps per CTA
+constexpr int kThreads = 32 * kWarps;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bcsr_spmm_kernel(const T* __restrict__ values,
-                 const int32_t* __restrict__ tile_cols,
-                 const int32_t* __restrict__ tile_ptr,
-                 const T* __restrict__ h, float* __restrict__ out,
-                 int tr, int d, int h_rows, int out_rows) {
-  // As is stored k-major with one pad column so that the transposing
-  // store (consecutive threads on consecutive k) hits distinct banks.
-  __shared__ float As[kBK][kBM + 1];
-  __shared__ float Hs[kBK][kBN];
+csr_spmm_kernel(const int32_t* __restrict__ row_ptr,
+                const int32_t* __restrict__ col, const T* __restrict__ val,
+                const T* __restrict__ h, float* __restrict__ out,
+                int out_rows, int d, int ld, int h_rows, int n_chunks) {
+  constexpr int V = Vec16<T>::kN;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= (int64_t)out_rows * n_chunks) return;  // whole warps
+  const int r = (int)(warp / n_chunks);
+  const int c_lane = (int)(warp % n_chunks) * 32 * V + lane * V;
 
-  const int blocks_per_tile_row = tr / kBM;
-  const int tile_row = blockIdx.x / blocks_per_tile_row;
-  const int m0 = (blockIdx.x % blocks_per_tile_row) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
 
-  float acc[kTM][kTN];
+  const int begin = row_ptr[r];
+  const int end = row_ptr[r + 1];
+  for (int k0 = begin; k0 < end; k0 += 32) {
+    int my_c;
+    float my_v;
+    stage(col, val, k0, end, lane, h_rows, my_c, my_v);
+    const int cnt = min(32, end - k0);
+    for (int j0 = 0; j0 < cnt; j0 += kUnroll) {
+      float x[kUnroll][1][V];
+      float v[kUnroll];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-  const int t_begin = tile_ptr[tile_row];
-  const int t_end = tile_ptr[tile_row + 1];
-  for (int t = t_begin; t < t_end; ++t) {
-    const T* a_blk = values + (int64_t)t * tr * kTileCols
-                     + (int64_t)m0 * kTileCols;
-    const int64_t h_row0 = (int64_t)tile_cols[t] * kTileCols;
-    for (int k0 = 0; k0 < kTileCols; k0 += kBK) {
-      for (int i = tid; i < kBM * kBK; i += kThreads) {
-        const int m = i / kBK;
-        const int k = i % kBK;
-        As[k][m] = to_f32(a_blk[(int64_t)m * kTileCols + k0 + k]);
+      for (int u = 0; u < kUnroll; ++u) {
+        // entries past cnt come from lanes whose my_c is -1
+        const int c = __shfl_sync(kFull, my_c, j0 + u);
+        v[u] = __shfl_sync(kFull, my_v, j0 + u);
+        load_row<T, 1>(h, c, ld, c_lane, x[u]);
       }
-      for (int i = tid; i < kBK * kBN; i += kThreads) {
-        const int k = i / kBN;
-        const int n = i % kBN;
-        const int64_t hr = h_row0 + k0 + k;
-        const int hc = n0 + n;
-        Hs[k][n] = (hr < h_rows && hc < d) ? to_f32(h[hr * d + hc]) : 0.f;
-      }
-      __syncthreads();
 #pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        float a[kTM];
-        float b[kTN];
+      for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) b[j] = Hs[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j)
-            acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+        for (int e = 0; e < V; ++e)
+          acc[e] = __fmaf_rn(v[u], x[u][0][e], acc[e]);
     }
   }
 
-  const int64_t row0 = (int64_t)tile_row * tr + m0;
+  if (c_lane >= d) return;
+  float* o = out + (int64_t)r * d + c_lane;
+  if ((d & 3) == 0 && c_lane + V <= d) {
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int64_t r = row0 + ty + 16 * i;
-    if (r >= out_rows) continue;
+    for (int q = 0; q < V / 4; ++q)
+      reinterpret_cast<float4*>(o)[q] = make_float4(
+          acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  } else {
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c < d) out[r * d + c] = acc[i][j];
-    }
+    for (int e = 0; e < V; ++e)
+      if (c_lane + e < d) o[e] = acc[e];
   }
 }
 
 template <typename T>
-int launch(const void* values, const void* tile_cols, const void* tile_ptr,
-           const void* h, void* out, int n_tile_rows, int tr, int d,
-           int h_rows, int out_rows, void* stream) {
-  if (tr <= 0 || tr % kBM != 0 || d <= 0 || n_tile_rows <= 0)
+int launch(const void* row_ptr, const void* col, const void* val,
+           const void* h, void* out, int out_rows, int d, int ld, int h_rows,
+           void* stream) {
+  constexpr int kChunk = 32 * Vec16<T>::kN;
+  if (out_rows <= 0 || d <= 0 || ld < d || ld % Vec16<T>::kN != 0 ||
+      h_rows < 0 || ((uintptr_t)h & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)n_tile_rows * (tr / kBM),
-                  (unsigned)((d + kBN - 1) / kBN));
-  bcsr_spmm_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)values, (const int32_t*)tile_cols, (const int32_t*)tile_ptr,
-      (const T*)h, (float*)out, tr, d, h_rows, out_rows);
+  const int n_chunks = (ld + kChunk - 1) / kChunk;
+  const int64_t blocks = ((int64_t)out_rows * n_chunks + kWarps - 1) / kWarps;
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  static bool carveout_set = false;  // give the SM's memory to L1
+  if (!carveout_set) {
+    cudaFuncSetAttribute(csr_spmm_kernel<T>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+    carveout_set = true;
+  }
+  csr_spmm_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)row_ptr, (const int32_t*)col, (const T*)val,
+      (const T*)h, (float*)out, out_rows, d, ld, h_rows, n_chunks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entries for ctypes. Pointers are device pointers; the stream is
-// PyTorch's current stream. Each returns cudaGetLastError() after the
-// launch (0 = launched).
-extern "C" int bcsr_spmm_f32(const void* values, const void* tile_cols,
-                             const void* tile_ptr, const void* h, void* out,
-                             int n_tile_rows, int tr, int d, int h_rows,
-                             int out_rows, void* stream) {
-  return launch<float>(values, tile_cols, tile_ptr, h, out, n_tile_rows, tr,
-                       d, h_rows, out_rows, stream);
+// PyTorch's current stream. out is [out_rows, d] f32; h is [h_rows, ld] in
+// the store's dtype (ld ≥ d, a whole number of 16-byte vectors; columns
+// d .. ld are read but never written). Each returns cudaGetLastError()
+// after the launch (0 = launched).
+extern "C" int bcsr_spmm_f32(const void* row_ptr, const void* col,
+                             const void* val, const void* h, void* out,
+                             int out_rows, int d, int ld, int h_rows,
+                             void* stream) {
+  return launch<float>(row_ptr, col, val, h, out, out_rows, d, ld, h_rows,
+                       stream);
 }
 
-extern "C" int bcsr_spmm_bf16(const void* values, const void* tile_cols,
-                              const void* tile_ptr, const void* h, void* out,
-                              int n_tile_rows, int tr, int d, int h_rows,
-                              int out_rows, void* stream) {
-  return launch<__nv_bfloat16>(values, tile_cols, tile_ptr, h, out,
-                               n_tile_rows, tr, d, h_rows, out_rows, stream);
+extern "C" int bcsr_spmm_bf16(const void* row_ptr, const void* col,
+                              const void* val, const void* h, void* out,
+                              int out_rows, int d, int ld, int h_rows,
+                              void* stream) {
+  return launch<__nv_bfloat16>(row_ptr, col, val, h, out, out_rows, d, ld,
+                               h_rows, stream);
 }

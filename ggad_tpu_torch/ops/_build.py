@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
-compiled with ``nvcc`` for ``sm_90a`` into ``ggad_tpu_torch/build/``
-(git-ignored), under a name that carries a hash of the source and flags, and
+Each ``csrc/<name>.cu`` has a plain C interface (and may include the shared
+headers ``csrc/*.cuh``). At first use it is compiled with ``nvcc`` for
+``sm_90a`` into ``ggad_tpu_torch/build/`` (git-ignored), under a name that
+carries a hash of the sources and flags, and
 loaded with ``ctypes``. Nothing is built when a module is imported. :func:`launch`
 calls an entry point on PyTorch's current stream.
 """
@@ -27,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple, object] = {}      # entry points, with their types set
 
 
 def nvcc_path() -> str:
@@ -41,8 +43,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The library's path, named by a hash of the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
@@ -79,12 +83,19 @@ def launch(name: str, entry: str, device: torch.device, pointers, ints
     stream)`` on PyTorch's current stream of ``device`` (in a backward
     pass, the stream autograd's engine set). Raises on a non-zero CUDA
     error code."""
-    fn = getattr(load(name), entry)
-    fn.argtypes = ([ctypes.c_void_p] * len(pointers)
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (name, entry, len(pointers), len(ints))
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(load(name), entry)
+        fn.argtypes = ([ctypes.c_void_p] * len(pointers)
+                       + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
         rc = fn(*pointers, *ints, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*pointers, *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")

@@ -7,8 +7,10 @@ For a tile set M (``ops.bcsr_spmm.BCSR``) and two operand sets E_r, E_c:
 
 On the transposed tiles of an adjacency A this is A's column sums of
 A ∘ (N Nᵀ), the numerator of GGAD's affinity. It runs in the hand-written
-CUDA kernel ``csrc/bcsr_sddmm.cu`` (K2's port) for CUDA tensors and in
-:func:`bcsr_sddmm_colsum_plain`, a loop over tiles, for CPU tensors.
+CUDA kernel ``csrc/bcsr_sddmm.cu`` (K2's port), which walks the tile set's
+non-zeros in compressed rows (``BCSR.row_ptr``, ``col``, ``val``), for
+CUDA tensors and in :func:`bcsr_sddmm_colsum_plain`, a loop over tiles,
+for CPU tensors.
 
 The two differentiable entry points keep the JAX package's custom VJPs;
 each backward is two launches of K1 (``ops.bcsr_spmm.bcsr_matmul``):
@@ -30,6 +32,7 @@ from ggad_tpu_torch.ops.bcsr_spmm import (
     bcsr_matmul,
     check_operand,
     check_tiles,
+    vector_rows,
 )
 
 
@@ -38,18 +41,17 @@ def bcsr_sddmm_colsum_cuda(tiles: BCSR, e_row: torch.Tensor,
     """Launch the CUDA kernel on PyTorch's current stream. Every output
     element is written, so the output is ``torch.empty``."""
     v = tiles.values
-    if v.dtype == torch.bfloat16:
-        # as pallas_sddmm.py:79-83: the operands are rounded to bf16 once
-        e_row, e_col = e_row.to(torch.bfloat16), e_col.to(torch.bfloat16)
+    # as pallas_sddmm.py:79-83: the operands are rounded to bf16 once
+    er, ec = vector_rows(e_row, v.dtype), vector_rows(e_col, v.dtype)
     out = torch.empty(n_out, dtype=torch.float32, device=e_row.device)
     _build.launch(
         "bcsr_sddmm",
         "bcsr_sddmm_f32" if v.dtype == torch.float32 else "bcsr_sddmm_bf16",
         e_row.device,
-        [v.data_ptr(), tiles.tile_cols.data_ptr(), tiles.tile_ptr.data_ptr(),
-         e_row.data_ptr(), e_col.data_ptr(), out.data_ptr()],
-        [tiles.n_rows // v.shape[1], v.shape[1], e_row.shape[1],
-         e_row.shape[0], e_col.shape[0], n_out])
+        [tiles.row_ptr.data_ptr(), tiles.col.data_ptr(),
+         tiles.val.data_ptr(), er.data_ptr(), ec.data_ptr(), out.data_ptr()],
+        [n_out, e_row.shape[1], er.shape[1], e_row.shape[0],
+         e_col.shape[0]])
     bcsr_sddmm_colsum.launches += 1
     return out
 

@@ -6,9 +6,12 @@ The adjacency is stored as its occupied tiles (tile-COO, sorted by
 
     out[tile_row block] += A_t @ H[tile_col block]
 
-The product runs in the hand-written CUDA kernel ``csrc/bcsr_spmm.cu``
-(K1's port) for CUDA tensors and in :func:`bcsr_spmm_plain`, a loop over
-tiles with the kernel's arithmetic, for CPU tensors.
+Beside the tile store every :class:`BCSR` holds the compressed rows of its
+stored non-zeros (``row_ptr``, ``col``, ``val``), derived from the stored
+values when the tiles are built. The hand-written CUDA kernel
+``csrc/bcsr_spmm.cu`` (K1's port) walks those rows for CUDA tensors;
+:func:`bcsr_spmm_plain`, a loop over tiles with the kernel's arithmetic,
+computes the product for CPU tensors.
 
 A graph carries a :class:`BCSRPair`: the forward tile set and, for
 training, the tile set of the transpose (serving builds only the forward
@@ -47,12 +50,37 @@ def storage_dtype(dtype) -> torch.dtype:
     return dtype
 
 
+def tile_csr(tile_rows: torch.Tensor, tile_cols: torch.Tensor,
+             values: torch.Tensor, n_rows: int
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The compressed rows of a tile store's non-zeros, on its device:
+    ``row_ptr [n_rows + 1]`` int32, ``col [nnz]`` int32 (global columns)
+    and ``val [nnz]`` in the store's dtype. The order is ``nonzero()`` over
+    ``[T, tr, 128]`` stably sorted by global row, so each row's columns
+    ascend (the order in which the tile loop adds them) and the values are
+    exactly the stored ones."""
+    tr = values.shape[1]
+    t, r, c = torch.nonzero(values, as_tuple=True)
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{t.numel()} non-zeros do not fit int32 indices")
+    grow = tile_rows.long()[t] * tr + r
+    grow, order = torch.sort(grow, stable=True)
+    t, r, c = t[order], r[order], c[order]
+    row_ptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=values.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(grow, minlength=n_rows), 0)
+    col = (tile_cols.long()[t] * TILE + c).to(torch.int32)
+    return row_ptr, col, values[t, r, c]
+
+
 @dataclasses.dataclass(frozen=True)
 class BCSR:
     """Tile-COO block-sparse matrix (tiles sorted by (tile_row, tile_col)).
 
-    ``tile_ptr[r] .. tile_ptr[r+1]`` are the tiles of tile row r; the
-    kernel walks a tile row through it.
+    ``tile_ptr[r] .. tile_ptr[r+1]`` are the tiles of tile row r.
+    ``row_ptr``, ``col`` and ``val`` are the stored non-zeros in compressed
+    rows (:func:`tile_csr`), built once with the tiles, on their device;
+    the kernels walk them. A copy with other values (``with_dtype``)
+    derives them anew.
     """
 
     tile_rows: torch.Tensor  # [T] int32
@@ -61,6 +89,18 @@ class BCSR:
     values: torch.Tensor     # [T, tr, TILE] float32 or bfloat16
     n_rows: int              # padded to a multiple of tr
     n_cols: int              # padded to a multiple of TILE
+    row_ptr: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                              compare=False)
+    col: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                          compare=False)
+    val: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                          compare=False)
+
+    def __post_init__(self):
+        csr = tile_csr(self.tile_rows, self.tile_cols, self.values,
+                       self.n_rows)
+        for name, x in zip(("row_ptr", "col", "val"), csr):
+            object.__setattr__(self, name, x)
 
     @property
     def n_tiles(self) -> int:
@@ -71,8 +111,10 @@ class BCSR:
         return self.values.shape[1]
 
     def with_dtype(self, dtype) -> "BCSR":
-        return dataclasses.replace(
-            self, values=self.values.to(storage_dtype(dtype)))
+        dtype = storage_dtype(dtype)
+        if self.values.dtype == dtype:
+            return self
+        return dataclasses.replace(self, values=self.values.to(dtype))
 
 
 def bcsr_from_coo(row: np.ndarray, col: np.ndarray, val: np.ndarray,
@@ -168,9 +210,12 @@ def bcsr_rect_from_coo(row: np.ndarray, col: np.ndarray, val: np.ndarray,
     """Rectangular ``[n_rows × n_cols]`` tile-COO build, the port of
     ``pallas_spmm.py:284-321``: zero values are dropped, every row block
     gets at least one (zero) cover tile, and ``n_tiles_pad`` pads the tile
-    count with zero tiles that repeat the last key. Values are summed in
-    f32 and rounded to ``dtype`` once."""
+    count with zero tiles that repeat the last key. As there, the store is
+    built in ``dtype``: each value is rounded to it, and entries on one
+    element are added in COO order, rounding after each add
+    (``np.add.at`` in the target dtype, ``pallas_spmm.py:311-312``)."""
     device = resolve_device(device)
+    dtype = storage_dtype(dtype)
     tr = tile_rows
     rp = _round_up(max(n_rows, tr), tr)
     cp = _round_up(max(n_cols, TILE), TILE)
@@ -187,8 +232,9 @@ def bcsr_rect_from_coo(row: np.ndarray, col: np.ndarray, val: np.ndarray,
                           return_inverse=True)
     inv = inv[: len(row)]               # the cover keys carry no values
     n_pad = max(n_tiles_pad, len(uniq))
-    values = np.zeros((n_pad, tr, TILE), np.float32)
-    np.add.at(values, (inv, row % tr, col % TILE), val)
+    flat = (inv * tr + row % tr) * TILE + col % TILE
+    values = torch.zeros(n_pad * tr * TILE, dtype=dtype)
+    _add_in_order(values, flat, torch.from_numpy(val).to(dtype))
     t_rows = np.full(n_pad, uniq[-1] // nct, np.int32)
     t_cols = np.full(n_pad, uniq[-1] % nct, np.int32)
     t_rows[: len(uniq)] = uniq // nct
@@ -198,10 +244,28 @@ def bcsr_rect_from_coo(row: np.ndarray, col: np.ndarray, val: np.ndarray,
         tile_rows=torch.from_numpy(t_rows).to(device),
         tile_cols=torch.from_numpy(t_cols).to(device),
         tile_ptr=torch.from_numpy(t_ptr).to(device),
-        values=torch.from_numpy(values).to(device, storage_dtype(dtype)),
+        values=values.view(n_pad, tr, TILE).to(device),
         n_rows=rp,
         n_cols=cp,
     )
+
+
+def _add_in_order(store: torch.Tensor, flat: np.ndarray,
+                  val: torch.Tensor) -> None:
+    """``store[flat[i]] += val[i]`` for i in order, in ``store``'s dtype,
+    rounding after each add, as ``np.add.at`` does: the k-th entry on an
+    element (in the order given) is added in round k, one add per element
+    in a round."""
+    if not len(flat):
+        return
+    order = np.argsort(flat, kind="stable")
+    first = np.r_[True, flat[order][1:] != flat[order][:-1]]
+    starts = np.maximum.accumulate(np.where(first, np.arange(len(flat)), 0))
+    rank = np.arange(len(flat)) - starts
+    for k in range(int(rank.max()) + 1):
+        sel = torch.from_numpy(order[rank == k])
+        idx = torch.from_numpy(flat)[sel]
+        store[idx] = store[idx] + val[sel]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,6 +351,15 @@ def check_tiles(tiles: BCSR) -> None:
         raise ValueError("tile values must be contiguous")
     if tiles.tile_ptr.numel() != tiles.n_rows // v.shape[1] + 1:
         raise ValueError("tile_ptr must have n_rows // tr + 1 entries")
+    for name in ("row_ptr", "col"):
+        idx = getattr(tiles, name)
+        if idx.dtype != torch.int32 or idx.device != v.device:
+            raise ValueError(f"{name} must be int32 on {v.device}")
+    if tiles.row_ptr.numel() != tiles.n_rows + 1:
+        raise ValueError("row_ptr must have n_rows + 1 entries")
+    if tiles.val.dtype != v.dtype or tiles.val.numel() != tiles.col.numel():
+        raise ValueError("val must hold one value of the store's dtype "
+                         "per column index")
 
 
 def check_operand(tiles: BCSR, x: torch.Tensor, max_rows: int,
@@ -310,21 +383,39 @@ def check_operand(tiles: BCSR, x: torch.Tensor, max_rows: int,
                          f"range")
 
 
+def vector_rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as the kernels read an operand: in ``dtype``, with a row
+    stride that is a whole number of 16-byte vectors and a 16-byte aligned
+    start. ``x`` itself where it already is so, else one copy (which also
+    casts). Columns past ``x``'s are left unset: K1 never writes them and
+    K2 masks them."""
+    n, d = x.shape
+    step = 16 // dtype.itemsize
+    ld = _round_up(d, step)
+    if ld == d:
+        y = x.to(dtype)
+        if y.data_ptr() % 16 == 0:
+            return y
+    y = torch.empty(n, ld, dtype=dtype, device=x.device)
+    y[:, :d] = x
+    return y
+
+
 def bcsr_spmm_cuda(tiles: BCSR, h: torch.Tensor, n_out: int) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream. Every output
-    element is written by the kernel, so the output is ``torch.empty``."""
+    row is written by the kernel, so the output is ``torch.empty``."""
     n, d = h.shape
     v = tiles.values
     # as pallas_spmm.py:135-140: H is rounded to bf16 before the kernel
-    hk = h if v.dtype == torch.float32 else h.to(torch.bfloat16)
+    hk = vector_rows(h, v.dtype)
     out = torch.empty(n_out, d, dtype=torch.float32, device=h.device)
     _build.launch(
         "bcsr_spmm",
         "bcsr_spmm_f32" if v.dtype == torch.float32 else "bcsr_spmm_bf16",
         h.device,
-        [v.data_ptr(), tiles.tile_cols.data_ptr(), tiles.tile_ptr.data_ptr(),
-         hk.data_ptr(), out.data_ptr()],
-        [tiles.n_rows // v.shape[1], v.shape[1], d, n, n_out])
+        [tiles.row_ptr.data_ptr(), tiles.col.data_ptr(),
+         tiles.val.data_ptr(), hk.data_ptr(), out.data_ptr()],
+        [n_out, d, hk.shape[1], n])
     bcsr_spmm.launches += 1
     return out
 

@@ -102,18 +102,38 @@ def test_bcsr_rect_from_coo_matches_jax(dtype, tr, n_tiles_pad):
 
 
 def test_bcsr_rect_from_coo_rounds_duplicates_once():
-    """Three entries on one element: the port sums them in f32 and rounds
-    the sum to bf16 once, as ``bcsr_pair_from_graph`` does; the JAX rect
-    build sums in bf16, rounding after each add (``pallas_spmm.py:311-312``),
-    here one bf16 ulp lower (ROADMAP Queue 3)."""
+    """Three entries on one element, in bf16: like the JAX rect build
+    (``pallas_spmm.py:311-312``), the port rounds each value to bf16 and
+    adds them in COO order, rounding after each add, so 1 + 2⁻⁸ + 2⁻⁸
+    stays 1.0 (the exact sum rounded once would be 1.0078125)."""
     row, col = np.array([0, 0, 0]), np.array([1, 1, 1])
     val = np.array([1.0, 2.0 ** -8, 2.0 ** -8], np.float32)
     p = pb.bcsr_rect_from_coo(row, col, val, 10, 10, dtype="bfloat16",
                               device="cpu")
     j = jp.bcsr_rect_from_coo(row, col, val, 10, 10, dtype=jnp.bfloat16)
-    exact = torch.tensor(float(val.sum())).to(torch.bfloat16).item()
-    assert p.values[0, 0, 1].item() == exact == 1.0078125
-    assert float(np.asarray(j.values)[0, 0, 1]) == 1.0
+    assert_tiles_equal(p, j)
+    assert p.values[0, 0, 1].item() == 1.0
+    assert p.val.tolist() == [1.0] and p.col.tolist() == [1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bcsr_rect_from_coo_duplicates_match_jax(dtype, seed):
+    """Random entries, many of them on the same elements (up to a dozen
+    each), values of mixed sign and scale and some zeros: the store equals
+    the JAX package's element for element, in f32 and in bf16."""
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols, n = 300, 200, 4000
+    row = rng.integers(0, 60, n) * 5 % n_rows
+    col = rng.integers(0, 40, n) * 5 % n_cols
+    val = (rng.normal(size=n) * 2.0 ** rng.integers(-9, 3, n)).astype(
+        np.float32)
+    val[::11] = 0.0
+    p = pb.bcsr_rect_from_coo(row, col, val, n_rows, n_cols, dtype=dtype,
+                              tile_rows=128, device="cpu")
+    j = jp.bcsr_rect_from_coo(row, col, val, n_rows, n_cols,
+                              dtype=JAX_DTYPE[dtype], tile_rows=128)
+    assert_tiles_equal(p, j)
 
 
 def emb_pair(n, d, seed):

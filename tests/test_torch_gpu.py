@@ -6,7 +6,10 @@ present and skips without one. On a machine with an H100 run
 ``python -m pytest tests/test_torch_gpu.py -q``. Tolerances: K1 f32 1e-5,
 bf16 2e-5 rel/abs (only the f32 summation order differs, as in
 ``test_torch_bcsr_spmm.py``); K2 on row-normalized operands (as the
-affinity feeds it) f32 1e-5, bf16 1e-4 (longer sums of rounded operands);
+affinity feeds it) f32 1e-5, bf16 1e-4 (the CSR walk sums lane slices,
+then non-zeros, then lanes and warps, the plain version each tile's dot
+products, then its columns, then the tiles: two orders of f32 sums of
+terms bounded by |M[r,c]|, since the rows are unit vectors);
 gradients and train-step losses on the card against the CPU 1e-4.
 """
 
@@ -121,6 +124,64 @@ def test_k2_rect_matches_plain(cuda, dtype):
     torch.testing.assert_close(
         out, pk2.bcsr_sddmm_colsum_plain(sub.pair.bwd, tgt, e),
         rtol=K2_TOL[dtype], atol=K2_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tr", [128, 256, 512, 1024])
+@pytest.mark.parametrize("d", [20, 33, 40, 48, 300])
+def test_csr_walks_at_every_width_and_height(cuda, dtype, tr, d):
+    """Both CSR-walk kernels against their plain versions at ragged widths
+    (row strides that are not whole 16-byte vectors: the wrapper's copy
+    and K2's column mask), every tile height, an empty tile row, and the
+    rectangular sets of a column subset, whose output rows differ from
+    their operand rows (K1 both ways, K2 on the ``[U × N]`` set)."""
+    tol = 1e-5 if dtype == "float32" else 2e-5
+    g = random_graph(600, 16, d + tr, cuda, empty_row=True)
+    tiles = pb.as_bcsr_graph(g, dtype=dtype, tile_rows=tr,
+                             transpose=False).tiles.fwd
+    h = randn(600, d, device=cuda, seed=d)
+    e = l2_normalize_rows(h)
+    out = pb.bcsr_matmul(tiles, h)
+    out2 = pk2.sddmm_colsum(tiles, e, e)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, pb.bcsr_spmm_plain(tiles, h),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(out2, pk2.bcsr_sddmm_colsum_plain(tiles, e, e),
+                               rtol=K2_TOL[dtype], atol=K2_TOL[dtype])
+    assert torch.all(out[128:256] == 0) and torch.all(out2[128:256] == 0)
+
+    sub = tile_affinity_subset(g, np.arange(2, 600, 9), dtype=dtype,
+                               tile_rows=tr)
+    u = sub.n_uniq
+    hu = randn(u, d, device=cuda, seed=d + 1)
+    torch.testing.assert_close(pb.bcsr_matmul(sub.pair.bwd, h, u),
+                               pb.bcsr_spmm_plain(sub.pair.bwd, h, u),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(pb.bcsr_matmul(sub.pair.fwd, hu, 600),
+                               pb.bcsr_spmm_plain(sub.pair.fwd, hu, 600),
+                               rtol=tol, atol=tol)
+    tgt = e[sub.uniq].contiguous()
+    torch.testing.assert_close(
+        pk2.sddmm_colsum(sub.pair.bwd, tgt, e),
+        pk2.bcsr_sddmm_colsum_plain(sub.pair.bwd, tgt, e),
+        rtol=K2_TOL[dtype], atol=K2_TOL[dtype])
+
+
+def test_kernels_read_operands_off_a_vector_boundary(cuda):
+    """Operands that start 4 bytes past a 16-byte boundary (views into a
+    larger tensor) are copied by the wrapper, not misread."""
+    g = random_graph(300, 12, 3, cuda)
+    tiles = pb.as_bcsr_graph(g, tile_rows=128, transpose=False).tiles.fwd
+    base = randn(300 * 40 + 1, device=cuda, seed=7)
+    h = base[1:].view(300, 40)
+    assert h.data_ptr() % 16 == 4
+    torch.testing.assert_close(pb.bcsr_matmul(tiles, h),
+                               pb.bcsr_spmm_plain(tiles, h),
+                               rtol=1e-5, atol=1e-5)
+    e = l2_normalize_rows(h)
+    torch.testing.assert_close(pk2.sddmm_colsum(tiles, h, e),
+                               pk2.bcsr_sddmm_colsum_plain(tiles, h, e),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
