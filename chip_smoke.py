@@ -22,7 +22,15 @@ Phases (any failure raises and the script exits non-zero):
      (``prepare_training``); the step time (CUDA events,
      median of 10) and a breakdown by stage; 3 f32 steps with
      ``noise_std=0`` on the card against the same steps on the CPU;
-  5. hold each kernel against its plain PyTorch version on the card, in f32
+  5. the sparse regime: the elliptic-shaped graph (``bench.py:208-209``,
+     46,564 nodes) at n_h 300 under ``spmm_impl="auto"``, which must give
+     the ELL sigma tables (plain PyTorch, no hand-written kernel: K1's and
+     K2's counters are set to 0 at the start and must read 0 at the end);
+     the tables' buckets and build time; 5 f32 + 5 bf16 Scorer requests
+     (f32 scores against a CPU run), 10 + 10 ``train()`` epochs, step
+     times and stages, prepare time and memory, 3 f32 steps against the
+     CPU;
+  6. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16: K1 at the photo serving shapes, on the transposed tile set
      and on the rectangular sets of the labeled-column subset, at the tile
      heights 128, 256, 512 and 1024 (the sweep of
@@ -34,11 +42,13 @@ Phases (any failure raises and the script exits non-zero):
      computing the same function, and compute each kernel's bound from this
      run's non-zeros (with the bound of the CSR walk the kernels implement
      beside it, and the bytes the walk gathers through L2);
-  6. profile a request and a train step of each precision: the device
-     time against the wall time (the card's busy share) and the largest
-     kernels; and the step's kernels alone. The profiler runs only after
-     the timed phases 3 and 4, since it adds to the host's launch time;
-  7. print the kernels' JSON line, the card line and, last,
+  7. profile a request and a train step of each precision, photo and
+     ELL: the device time against the wall time (the card's busy share),
+     the device operations a call and the largest kernels; the photo
+     step's kernels alone and the ELL step's table products alone. The
+     profiler runs only after the timed phases 3 to 5, since it adds to
+     the host's launch time;
+  8. print the kernels' JSON line, the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``ggad_tpu``.
@@ -97,28 +107,37 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> tuple[float, dict]:
+def device_ms(fn, iters: int = 20) -> tuple[float, dict, float]:
     """Mean device milliseconds per call: the summed time of every kernel
     the call puts on the card (``torch.profiler``, CUPTI), free of host
-    launch overhead; and the microseconds per call of each kernel."""
+    launch overhead; the microseconds per call of each kernel; and the
+    device operations (kernels, copies, fills) per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {e.key: e.self_device_time_total / iters
-           for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total
-           and not e.is_user_annotation}
-    if not per:
+    # a session now and then returns no device activity at all (seen once
+    # in a dozen runs, on a call that launched kernels in every other
+    # run); such a session is taken again, at most twice
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total and not e.is_user_annotation]
+        if events:
+            break
+        print(f"  profiler session {attempt + 1} saw no kernel on the card")
+    else:
         raise RuntimeError("the profiler saw no kernel on the card")
-    return sum(per.values()) / 1e3, per
+    per = {e.key: e.self_device_time_total / iters for e in events}
+    return (sum(per.values()) / 1e3, per,
+            sum(e.count for e in events) / iters)
 
 
 def build_kernels() -> None:
@@ -220,7 +239,7 @@ def check_k1(tiles, h, dtype: str, *, n_out=None, timed: bool) -> dict:
     if not timed:
         return rec
     n, d = h.shape
-    rec["ms"], per = device_ms(lambda: pb.bcsr_matmul(tiles, h))
+    rec["ms"], per, _ = device_ms(lambda: pb.bcsr_matmul(tiles, h))
     rec["call_ms"] = cuda_ms(lambda: pb.bcsr_matmul(tiles, h), iters=20)
     rec["plain_ms"] = cuda_ms(lambda: pb.bcsr_spmm_plain(tiles, h),
                               iters=3, warmup=1)
@@ -309,7 +328,7 @@ def check_k2(tiles, e_row, e_col, dtype: str, *, timed: bool) -> dict:
     rec = {"max_abs_err": err}
     if not timed:
         return rec
-    rec["ms"], per = device_ms(
+    rec["ms"], per, _ = device_ms(
         lambda: pk2.sddmm_colsum(tiles, e_row, e_col))
     rec["call_ms"] = cuda_ms(lambda: pk2.sddmm_colsum(tiles, e_row, e_col),
                              iters=20)
@@ -357,7 +376,7 @@ def tile_rows_sweep(adj, h, dtype: str) -> list:
         tiles = pb.as_bcsr_graph(adj, dtype=dtype, tile_rows=tr,
                                  transpose=False).tiles.fwd
         err = check_k1(tiles, h, dtype, timed=False)["max_abs_err"]
-        ms, _ = device_ms(lambda: pb.bcsr_matmul(tiles, h))
+        ms = device_ms(lambda: pb.bcsr_matmul(tiles, h))[0]
         v = tiles.values
         rows.append({"tile_rows": tr, "n_tiles": tiles.n_tiles,
                      "tile_store_MB": round(v.numel() * v.element_size()
@@ -446,10 +465,13 @@ def stage_breakdown(scorer) -> dict:
     """CUDA-event times of the eval forward's stages (median of 10)."""
     import torch
 
+    from ggad_tpu_torch.ops.bcsr_spmm import BCSRGraph
     from ggad_tpu_torch.ops.spmm import spmm
 
     tr = scorer.trainer
     m = tr.model
+    spmm_stage = ("gcn2 spmm (K1)" if isinstance(tr.adj, BCSRGraph)
+                  else "gcn2 spmm (ELL sigma tables)")
     stages = {}
     with torch.no_grad():
         h1 = m.gcn1(tr.adj, tr.features, pre_agg=tr.ax)
@@ -459,11 +481,22 @@ def stage_breakdown(scorer) -> dict:
                 ("gcn1 (dense, on hoisted Ax)",
                  lambda: m.gcn1(tr.adj, tr.features, pre_agg=tr.ax)),
                 ("gcn2 fc", lambda: m.gcn2.fc(h1)),
-                ("gcn2 spmm (K1)", lambda: spmm(tr.adj, hw)),
+                (spmm_stage, lambda: spmm(tr.adj, hw)),
                 ("head", lambda: m.head(emb))]:
             stages[name] = statistics.median(
                 cuda_ms(fn, iters=1, warmup=0) for _ in range(10))
     return stages
+
+
+def save_seeded_init(ckpt_dir: str, ds) -> None:
+    """A checkpoint of the port's seeded init (seed 0) at n_h ``N_H``."""
+    import torch
+
+    from ggad_tpu_torch.models.ggad import GGAD
+    from ggad_tpu_torch.train.checkpoint import Checkpointer
+
+    init = GGAD(ds.feat_dim, N_H, generator=torch.Generator().manual_seed(0))
+    Checkpointer(ckpt_dir).save(0, {"params": init.state_dict(), "epoch": 0})
 
 
 def serving_phase(cuda, k1: dict, later: list) -> None:
@@ -473,20 +506,15 @@ def serving_phase(cuda, k1: dict, later: list) -> None:
     import torch
 
     from ggad_tpu_torch.datasets.synthetic import photo_bench
-    from ggad_tpu_torch.models.ggad import GGAD
     from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
     from ggad_tpu_torch.ops.bcsr_spmm import BCSRGraph, bcsr_spmm
     from ggad_tpu_torch.serve import Scorer
-    from ggad_tpu_torch.train.checkpoint import Checkpointer
 
     ds = photo_bench()
     print(f"serving graph: nodes={ds.n_nodes} edges={ds.n_edges} "
           f"feats={ds.feat_dim} n_h={N_H}")
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        init = GGAD(ds.feat_dim, N_H,
-                    generator=torch.Generator().manual_seed(0))
-        Checkpointer(ckpt_dir).save(0, {"params": init.state_dict(),
-                                        "epoch": 0})
+        save_seeded_init(ckpt_dir, ds)
         scores, scorers = {}, {}
         for dtype in ("float32", "bfloat16"):
             scorer = None
@@ -611,15 +639,44 @@ def step_kernels_line(dtype: str, tr, gen) -> str:
             f"device): {json.dumps(stages)}")
 
 
+def ell_sweeps_line(dtype: str, tr, gen) -> str:
+    """Device time of the ELL route's table products alone at the step's
+    shapes (``device_ms``, mean of 10 calls): how much of the step the
+    bucket sweeps take."""
+    import torch
+
+    from ggad_tpu_torch.ops import ell_spmm as pe
+    from ggad_tpu_torch.ops.sddmm import l2_normalize_rows
+
+    n, s = tr.dataset.n_nodes, tr.seed_idx.shape[0]
+    sub, seed, pair = tr.aff_sub, tr.seed_adj.tables, tr.adj.tables
+    h = torch.randn(n, N_H, device=tr.device, generator=gen)
+    hs = torch.randn(s, N_H, device=tr.device, generator=gen)
+    hu = torch.randn(sub.n_uniq, N_H, device=tr.device, generator=gen)
+    e = l2_normalize_rows(h)
+    tgt = e[sub.uniq.long()]
+    stages = {name: device_ms(fn, iters=10)[0] for name, fn in [
+        ("gcn2 forward [N x N]", lambda: pe._matmul_any(pair.fwd, h)),
+        ("gcn2 backward (transposed)", lambda: pe._matmul_any(pair.bwd, h)),
+        ("seed aggregation [S x N]", lambda: pe._matmul_any(seed.fwd, h)),
+        ("seed backward [N x S]", lambda: pe._matmul_any(seed.bwd, hs)),
+        ("margin colsum [U x N]",
+         lambda: pe._colsum_any(sub.bwd, e, tgt)),
+        ("margin backward [N x U] + [U x N]",
+         lambda: (pe._matmul_any(sub.fwd, hu), pe._matmul_any(sub.bwd, e)))]}
+    stages["sum"] = sum(stages.values())
+    return (f"  ELL train {dtype} table products alone at the step's shapes "
+            f"(ms, device): {json.dumps(stages)}")
+
 def busy_line(what: str, fn, wall_ms: float, iters: int) -> str:
     """The device time of ``iters`` calls of ``fn`` (``device_ms``) against
     their median wall time: the card's busy share, and its largest
     kernels."""
-    dev, per = device_ms(fn, iters=iters)
+    dev, per, ops = device_ms(fn, iters=iters)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
     return (f"  {what}: device time {dev:.4f} ms a call against a median of "
-            f"{wall_ms:.3f} ms, busy share {dev / wall_ms:.3f}; largest "
-            f"kernels (us a call) "
+            f"{wall_ms:.3f} ms, busy share {dev / wall_ms:.3f}; {ops:.1f} "
+            f"device ops a call; largest kernels (us a call) "
             f"{json.dumps({k[:60]: round(v, 2) for k, v in top})}")
 
 
@@ -710,7 +767,17 @@ def training_phase(cuda, k1: dict, k2: dict, later: list) -> None:
                              statistics.median(steps), EPOCHS))
         later.append(partial(step_kernels_line, dtype, tr, gen))
 
-    # 3 f32 steps, noise_std=0, the same init on the card and on the CPU
+    card_vs_cpu_steps(ds, cuda, "train")
+
+
+def card_vs_cpu_steps(ds, cuda, what: str) -> None:
+    """3 f32 steps with ``noise_std=0`` from the same init on the card and
+    on the CPU (``spmm_impl="auto"``): all six loss fields within
+    ``LOSS_TOL``."""
+    import torch
+
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
     card_cpu = {}
     for device in (cuda, "cpu"):
         tr = FullBatchTrainer(ds, embedding_dim=N_H, noise_mean=0.02,
@@ -725,11 +792,169 @@ def training_phase(cuda, k1: dict, k2: dict, later: list) -> None:
     for sa, sb in zip(card, cpu):
         for a, b in zip(sa, sb):
             if not abs(a - b) <= LOSS_TOL * (1 + abs(b)):
-                raise RuntimeError(f"card losses {card} vs CPU {cpu}")
-    print(f"train f32 card vs CPU, 3 steps, six loss fields: max|d| "
+                raise RuntimeError(f"{what}: card losses {card} vs CPU {cpu}")
+    print(f"{what} f32 card vs CPU, 3 steps, six loss fields: max|d| "
           f"{diff:.3g} (tol {LOSS_TOL}); totals card "
           f"{[round(s[0], 6) for s in card]} cpu "
           f"{[round(s[0], 6) for s in cpu]}")
+
+
+def ell_tables_line(what: str, t, build_s=None) -> str:
+    """A sigma table's buckets (K, rows), slots, zero rows, residual and,
+    when given, its build time."""
+    buckets = [(b.idx.shape[0], b.idx.shape[1]) for b in t.buckets]
+    line = (f"  {what}: buckets (K, rows) {buckets}, {t.n_slots} slots, "
+            f"{t.n_zero} zero rows, residual {t.n_overflow} (512-padded)")
+    return line if build_s is None else f"{line}; build {build_s:.3f} s"
+
+
+def sparse_phase(cuda, k1: dict, k2: dict, later: list) -> None:
+    """Phase 5: the elliptic-shaped graph (``bench.py:208-209``) on the ELL
+    route at n_h 300: ``spmm_impl="auto"`` must give the sigma tables and
+    the ELL subset; 5 + 5 Scorer requests (f32 scores against the CPU),
+    10 + 10 ``train()`` epochs, step times and stages, 3 f32 steps against
+    the CPU. K1 and K2 must not launch anywhere in the phase; appends the
+    profiled lines to ``later``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ggad_tpu_torch.datasets.synthetic import synthetic_like
+    from ggad_tpu_torch.ops import ell_spmm as pe
+    from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+    from ggad_tpu_torch.serve import Scorer
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    ds = synthetic_like("elliptic")
+    print(f"sparse graph (elliptic-shaped): nodes={ds.n_nodes} "
+          f"edges={ds.n_edges} (+I {ds.n_edges + ds.n_nodes}) "
+          f"feats={ds.feat_dim} labeled={len(labeled(ds))} "
+          f"seeds={len(ds.abnormal_label_idx)} n_h={N_H}")
+    scores = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        save_seeded_init(ckpt_dir, ds)
+        for dtype in ("float32", "bfloat16"):
+            scorer = None
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            scorer = Scorer(ckpt_dir, ds, embedding_dim=N_H,
+                            spmm_dtype=dtype, device=cuda)
+            torch.cuda.synchronize()
+            prep = time.perf_counter() - t0
+            held = (torch.cuda.memory_allocated() - base) / 1e6
+            adj = scorer.trainer.adj
+            if not (isinstance(adj, pe.ELLGraph) and adj.tables.bwd is None):
+                raise RuntimeError(f"{dtype}: the elliptic-shaped graph did "
+                                   f"not route to the forward ELL table "
+                                   f"({type(adj).__name__})")
+            t0 = time.perf_counter()
+            pe.as_ell_graph(adj.graph, layout="sigma", transpose=False,
+                            dtype=dtype)
+            torch.cuda.synchronize()
+            print(ell_tables_line(f"ELL forward table {dtype}",
+                                  adj.tables.fwd, time.perf_counter() - t0))
+            lat = []
+            for _ in range(REQUESTS):
+                t0 = time.perf_counter()
+                res = scorer.score()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            fwd = []
+            for _ in range(REQUESTS):
+                t0 = time.perf_counter()
+                scorer.trainer.eval_scores(scorer.params)
+                fwd.append((time.perf_counter() - t0) * 1e3)
+            if (res.scores.shape != (ds.n_nodes,)
+                    or not np.all(np.isfinite(res.scores))):
+                raise RuntimeError(f"ELL {dtype}: bad scores")
+            scores[dtype] = res
+            print(f"ELL serve {dtype}: prepare {prep:.3f} s, device memory "
+                  f"held {held:.1f} MB; request ms "
+                  f"{[round(x, 3) for x in lat]} (median "
+                  f"{statistics.median(lat):.3f}); eval_scores alone "
+                  f"median {statistics.median(fwd):.3f} ms; AUROC "
+                  f"{res.auc:.6f} AP {res.ap:.6f}")
+            print(f"  eval forward by stage (ms, CUDA events): "
+                  f"{json.dumps(stage_breakdown(scorer))}")
+            later.append(partial(busy_line, f"ELL serve request {dtype}",
+                                 scorer.score, statistics.median(lat),
+                                 REQUESTS))
+        cpu = Scorer(ckpt_dir, ds, embedding_dim=N_H, device="cpu").score()
+    diff = np.abs(scores["float32"].scores - cpu.scores).max()
+    np.testing.assert_allclose(scores["float32"].scores, cpu.scores,
+                               rtol=SCORE_TOL, atol=SCORE_TOL)
+    print(f"ELL f32 card vs CPU scores max|d| {diff:.3g} (tol {SCORE_TOL}); "
+          f"bf16 card vs CPU f32 max|d| "
+          f"{np.abs(scores['bfloat16'].scores - cpu.scores).max():.3g}")
+
+    for dtype in ("float32", "bfloat16"):
+        tr = None
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = FullBatchTrainer(ds, embedding_dim=N_H, spmm_dtype=dtype,
+                              num_epoch=EPOCHS, eval_every=EPOCHS,
+                              log_every=1, noise_mean=0.02, noise_std=0.01,
+                              device=cuda)
+        torch.cuda.synchronize()
+        served = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        tr.prepare_training()
+        torch.cuda.synchronize()
+        prep, prep_train = t1 - t0, time.perf_counter() - t1
+        mem = ((served - base) / 1e6,
+               (torch.cuda.memory_allocated() - served) / 1e6)
+        if not (isinstance(tr.adj, pe.ELLGraph)
+                and isinstance(tr.seed_adj, pe.ELLGraph)
+                and isinstance(tr.aff_sub, pe.ELLAffinitySubset)):
+            raise RuntimeError(f"ELL {dtype}: the trainer took another route "
+                               f"({type(tr.adj).__name__}, "
+                               f"{type(tr.aff_sub).__name__})")
+        if dtype == "float32":
+            for what, t in (("ELL transposed table", tr.adj.tables.bwd),
+                            ("seed table [S x N]", tr.seed_adj.tables.fwd),
+                            ("seed table [N x S]", tr.seed_adj.tables.bwd),
+                            ("subset table [N x U]", tr.aff_sub.fwd),
+                            ("subset table [U x N]", tr.aff_sub.bwd)):
+                print(ell_tables_line(what, t))
+        t0 = time.perf_counter()
+        res = tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [r["loss"] for r in res.history if "loss" in r]
+        if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"ELL {dtype}: bad losses {losses}")
+        gen = torch.Generator(cuda).manual_seed(1)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(EPOCHS + 1)]
+        ev[0].record()
+        for i in range(EPOCHS):
+            tr.train_step(gen)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        steps = [ev[i].elapsed_time(ev[i + 1]) for i in range(EPOCHS)]
+        print(f"ELL train {dtype}: prepare {prep:.3f} s + training-only "
+              f"{prep_train:.3f} s; device memory {mem[0]:.1f} MB + "
+              f"training-only {mem[1]:.1f} MB; train() {EPOCHS} epochs "
+              f"{wall:.3f} s; losses {[round(x, 6) for x in losses]}; "
+              f"final AUROC {res.final_auc:.6f} AP {res.final_ap:.6f}")
+        print(f"  step ms (CUDA events) {[round(x, 3) for x in steps]} "
+              f"(median {statistics.median(steps):.3f})")
+        print(f"  step by stage (ms, CUDA events): "
+              f"{json.dumps(train_stages(tr, gen))}")
+        later.append(partial(busy_line, f"ELL train step {dtype}",
+                             partial(tr.train_step, gen),
+                             statistics.median(steps), EPOCHS))
+        later.append(partial(ell_sweeps_line, dtype, tr, gen))
+
+    card_vs_cpu_steps(ds, cuda, "ELL train")
+    if bcsr_spmm.launches or bcsr_sddmm_colsum.launches:
+        raise RuntimeError(f"the ELL phase launched K1 {bcsr_spmm.launches} "
+                           f"and K2 {bcsr_sddmm_colsum.launches} times")
+    for rec in (*k1.values(), *k2.values()):
+        rec["paths"]["sparse (ELL)"] = 0
+    print("ELL phase: K1 launches 0, K2 launches 0")
 
 
 def kernel_record(name, source, replaces, rec) -> dict:
@@ -777,6 +1002,7 @@ def main() -> int:
     later = []
     serving_phase(cuda, k1, later)
     training_phase(cuda, k1, k2, later)
+    sparse_phase(cuda, k1, k2, later)
     kernel_phase(cuda, k1, k2)
     for line in later:
         print(line())

@@ -5,12 +5,13 @@ an obvious counterpart. It imports ``torch`` and never ``jax`` nor anything
 of ``ggad_tpu``. Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without an explicit device it raises.
 
-It carries single-device full-batch GGAD: dataset, graph preparation,
-the model (gcn2 through the hand-written BCSR SpMM kernel, forward and
-backward), the three-term loss (in bf16 mode the affinity through the
-hand-written SDDMM kernel), ``train.full_batch.FullBatchTrainer.train``,
-checkpoints, ``serve.score_dataset`` and the CLI (training and
-``--score_only``).
+It carries single-device full-batch GGAD: dataset, graph preparation
+(with RCM reordering), the model (gcn2 through the hand-written BCSR SpMM
+kernel, forward and backward, on a tile-dense graph, and through the ELL
+sigma tables on a tile-sparse one), the three-term loss (in bf16 mode on
+tiles the affinity through the hand-written SDDMM kernel),
+``train.full_batch.FullBatchTrainer.train``, checkpoints,
+``serve.score_dataset`` and the CLI (training and ``--score_only``).
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,10 @@ Two GGAD routes of ``ggad_tpu.cli`` (``cli.py:120-173``): training (the
 default; per-dataset defaults from the preset registry, reference
 ``run.py:38-66``) and ``--score_only``, which restores ``--checkpoint_dir``
 and scores the dataset. Both run on the card unless ``--device cpu`` is
-given. The last line of the output is one JSON record.
+given. ``--spmm_impl`` picks the sparse route (``auto``: BCSR tiles on a
+tile-dense graph, ELL tables on a tile-sparse one) and ``--reorder``
+RCM-renumbers the nodes first. The last line of the output is one JSON
+record.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "coo", "bcsr", "ell"])
     p.add_argument("--spmm_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--reorder", action="store_true",
+                   help="RCM-reorder nodes for tile locality (it can move "
+                        "a graph from the ELL route to the BCSR one)")
     p.add_argument("--log_jsonl", type=str, default=None,
                    help="write per-epoch metric records to this jsonl file")
     p.add_argument("--checkpoint_dir", type=str, default=None)
@@ -67,6 +73,9 @@ def main(argv=None) -> int:
 
     ds = load_dataset(args.dataset, data_dir=args.data_dir, seed=args.seed,
                       synthetic_scale=args.synthetic_scale)
+    if args.reorder:
+        from ggad_tpu_torch.datasets.reorder import reorder_rcm
+        ds = reorder_rcm(ds)
     print(f"dataset={ds.name} nodes={ds.n_nodes} edges={ds.n_edges} "
           f"feats={ds.feat_dim} anomalies={int(ds.ano_labels.sum())} "
           f"labeled_normals={len(ds.normal_label_idx)} "
@@ -79,16 +88,18 @@ def main(argv=None) -> int:
 def score(args, ds) -> int:
     import numpy as np
 
-    from ggad_tpu_torch.serve import score_dataset
+    from ggad_tpu_torch.serve import Scorer
 
-    res = score_dataset(args.checkpoint_dir, ds,
-                        embedding_dim=args.embedding_dim,
-                        spmm_impl=args.spmm_impl,
-                        spmm_dtype=args.spmm_dtype, device=args.device)
+    scorer = Scorer(args.checkpoint_dir, ds,
+                    embedding_dim=args.embedding_dim,
+                    spmm_impl=args.spmm_impl, spmm_dtype=args.spmm_dtype,
+                    device=args.device)
+    res = scorer.score()
     if args.score_out:
         np.savez(args.score_out, scores=res.scores, labels=ds.ano_labels)
     print(json.dumps({"dataset": ds.name, "model": "ggad",
                       "mode": "score_only", "ckpt_step": res.step,
+                      "spmm_route": scorer.trainer.route,
                       "auc": res.auc, "ap": res.ap}))
     return 0
 
@@ -103,9 +114,10 @@ def train(args, ds) -> int:
 
     preset = preset_for(args.dataset)
     logger = JsonlLogger(args.log_jsonl) if args.log_jsonl else None
+    built = []
 
     def make_trainer():
-        return FullBatchTrainer(
+        built.append(FullBatchTrainer(
             ds,
             lr=args.lr if args.lr is not None else preset.lr,
             weight_decay=args.weight_decay,
@@ -123,7 +135,8 @@ def train(args, ds) -> int:
             checkpoint_dir=args.checkpoint_dir,
             logger=logger.log if logger else None,
             device=args.device,
-        )
+        ))
+        return built[-1]
 
     try:
         res = train_with_retries(make_trainer, retries=args.retries,
@@ -132,6 +145,7 @@ def train(args, ds) -> int:
         if logger is not None:
             logger.close()
     print(json.dumps({"dataset": ds.name, "model": "ggad",
+                      "spmm_route": built[-1].route,
                       "auc": res.final_auc, "ap": res.final_ap,
                       "wall_time_s": res.wall_time_s}))
     return 0

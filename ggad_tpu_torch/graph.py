@@ -133,6 +133,27 @@ def from_scipy(mat, *, pad_multiple: int = 512,
                     pad_multiple=pad_multiple, device=device)
 
 
+def to_scipy(g: Graph):
+    """Back to a scipy CSR matrix, padding dropped (``graph.py:149-157``);
+    duplicate edges are summed."""
+    import scipy.sparse as sp
+
+    row, col, val = g.host_coo()
+    return sp.coo_matrix((val, (row, col)),
+                         shape=(g.n_nodes, g.n_nodes)).tocsr()
+
+
+def coalesce(row, col, val, n_nodes):
+    """Host-side: sum duplicate (row, col) entries (``graph.py:215-221``);
+    the result is sorted by (row, col)."""
+    key = row.astype(np.int64) * n_nodes + col.astype(np.int64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    out_val = np.zeros(uniq.shape[0], dtype=np.float32)
+    np.add.at(out_val, inv, val)
+    return ((uniq // n_nodes).astype(np.int64),
+            (uniq % n_nodes).astype(np.int64), out_val)
+
+
 def rows_subgraph(g: Graph, rows) -> Graph:
     """Rectangular row-subgraph (``ggad_tpu/graph.py:160-195``): the edges
     of ``rows`` with row indices renumbered 0..len(rows)-1 in the order

@@ -2,7 +2,8 @@
 
   * 2-layer GCN encoder (n_in → n_h → n_h, PReLU) over a sparse Â;
     gcn1 runs on the hoisted ``Â·x`` when given, gcn2's Â·(hW₂) goes
-    through ``ops.spmm`` (the BCSR kernel on a tile-dense graph).
+    through ``ops.spmm`` (the BCSR kernel on a tile-dense graph, the ELL
+    sigma tables on a tile-sparse one).
   * Outlier generation (train branch): for each seed node s,
       - target    emb_abnormal[s] = emb[s] + noise[s]  (``model.py:141-144``)
       - generated emb_con[s] = ReLU(fc4((Â @ emb)[s]))  (``model.py:151-156``)
@@ -71,9 +72,10 @@ class GGAD(nn.Module):
         """``ggad.py:131-171``. ``ax``: optional precomputed ``Â @ x``,
         which hoists the first layer's aggregation. In training,
         ``seed_adj`` is the optional row-subgraph of ``adj`` at
-        ``seed_idx`` (``graph.rows_subgraph``; the aggregation then costs
-        O(E_seed) on the gather path) and ``noise`` the ``[S, n_h]`` draw
-        added to the seed embeddings."""
+        ``seed_idx`` (``graph.rows_subgraph``, or its ``ELLGraph`` with
+        rectangular sigma tables on the ELL route; the aggregation then
+        costs O(E_seed) through ``ops.spmm``) and ``noise`` the
+        ``[S, n_h]`` draw added to the seed embeddings."""
         emb = self.encode(adj, x, ax=ax)
         if not train:
             return GGADOutput(emb, None, self.head(emb), None, None)

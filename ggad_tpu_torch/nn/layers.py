@@ -50,7 +50,8 @@ class DenseNoBias(nn.Module):
 
 class GCNLayer(nn.Module):
     """h' = PReLU(Â @ (h W) + b) — reference ``model.py:26-35``. The
-    aggregation dispatches on the graph's type (``ops.spmm``)."""
+    aggregation dispatches on the graph's type (``ops.spmm``: COO, BCSR
+    tiles or ELL tables)."""
 
     def __init__(self, in_features: int, features: int, *,
                  generator: Optional[torch.Generator] = None):

@@ -43,10 +43,11 @@ def _round_up(x: int, m: int) -> int:
 
 def storage_dtype(dtype) -> torch.dtype:
     """``"float32"``/``"bfloat16"`` (the trainer's ``spmm_dtype``) or a
-    torch dtype → the tile store's torch dtype."""
+    torch dtype → the torch dtype of a tile store or ELL table."""
     dtype = _DTYPES.get(dtype, dtype)
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"BCSR tiles are float32 or bfloat16, not {dtype}")
+        raise ValueError(f"sparse values are float32 or bfloat16, not "
+                         f"{dtype}")
     return dtype
 
 

@@ -4,11 +4,14 @@ The reference masks an N×N cosine-similarity matrix by the raw adjacency
 (``run.py:182-188``); only edge entries survive, so the affinity is a
 sampled dense-dense product (SDDMM) over raw_adj's edges followed by a
 column sum, O(E·d). On a graph that carries BCSR tiles the numerator runs
-in K2 (``ops.bcsr_sddmm``).
+in K2 (``ops.bcsr_sddmm``), on one that carries ELL tables through their
+transposed table (``ops.ell_spmm``).
 
 The margin loss reads the affinity only at the labeled nodes, so the
 trainer restricts the SDDMM to their columns: :class:`AffinitySubset`
-(edge-parallel) or :class:`TileAffinitySubset` (rectangular tiles, K2).
+(edge-parallel), :class:`TileAffinitySubset` (rectangular tiles, K2) or
+:class:`~ggad_tpu_torch.ops.ell_spmm.ELLAffinitySubset` (rectangular ELL
+tables).
 """
 
 from __future__ import annotations
@@ -27,6 +30,12 @@ from ggad_tpu_torch.ops.bcsr_spmm import (
     BCSRPair,
     bcsr_rect_from_coo,
     pick_tile_rows,
+)
+from ggad_tpu_torch.ops.ell_spmm import (
+    ELLAffinitySubset,
+    ELLGraph,
+    ell_affinity_colsum,
+    ell_subset_colsum,
 )
 
 
@@ -63,11 +72,14 @@ def node_affinity(g, emb: torch.Tensor) -> torch.Tensor:
                       / Σ_{e: col[e]=j} val[e]
 
     with 1/0 → 0. ``g`` is the raw adjacency plus self-loops. A
-    :class:`BCSRGraph` takes K2; a plain graph the edge-parallel path.
+    :class:`BCSRGraph` takes K2, an :class:`ELLGraph` its table pair, a
+    plain graph the edge-parallel path.
     """
     inv = _inverse(g.in_degrees())
     if isinstance(g, BCSRGraph):
         num = bcsr_sddmm_colsum(g.tiles, l2_normalize_rows(emb))
+    elif isinstance(g, ELLGraph):
+        num = ell_affinity_colsum(g.tables, l2_normalize_rows(emb))
     else:
         num = torch.zeros(g.n_nodes, dtype=emb.dtype, device=emb.device)
         num = num.index_add(0, g.col, edge_cosine(g, emb))
@@ -161,9 +173,13 @@ def tile_affinity_subset(g, idx, *, dtype="float32",
 
 def node_affinity_at(sub, emb: torch.Tensor) -> torch.Tensor:
     """affinity[k] for the k-th requested node: the values of
-    ``node_affinity(g, emb)[idx]`` (``sddmm.py:201-223``), edge-parallel
-    or, for a :class:`TileAffinitySubset`, through K2."""
+    ``node_affinity(g, emb)[idx]`` (``sddmm.py:201-223``), edge-parallel,
+    through K2 for a :class:`TileAffinitySubset` or through the rectangular
+    tables of an :class:`ELLAffinitySubset`."""
     emb_n = l2_normalize_rows(emb)
+    if isinstance(sub, ELLAffinitySubset):
+        num = ell_subset_colsum(sub, emb_n)
+        return (num * sub.inv_den)[sub.gather]
     tgt = emb_n[sub.uniq]
     if isinstance(sub, TileAffinitySubset):
         num = bcsr_sddmm_colsum_rect(sub.pair, tgt, emb_n)

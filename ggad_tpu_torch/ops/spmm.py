@@ -3,7 +3,9 @@
 
 The COO path is gather + ``index_add_`` (O(E·d)); a graph that carries
 BCSR tiles (:class:`~ggad_tpu_torch.ops.bcsr_spmm.BCSRGraph`) goes through
-the hand-written block-sparse kernel instead.
+the hand-written block-sparse kernel instead, and one that carries ELL
+tables (:class:`~ggad_tpu_torch.ops.ell_spmm.ELLGraph`) through their
+bucketed gathers.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ggad_tpu_torch.ops.bcsr_spmm import BCSRGraph, bcsr_spmm
+from ggad_tpu_torch.ops.ell_spmm import ELLGraph, ell_spmm
 
 
 def spmm_coo(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
@@ -25,11 +28,13 @@ def spmm(g, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     """Compute A @ x for the sparse adjacency held by ``g``.
 
     Dispatch on the graph type, as ``ggad_tpu.ops.spmm.spmm`` does: a
-    BCSRGraph runs the BCSR kernel unless ``impl='coo'`` (JAX's
-    ``'xla'``) forces the gather path.
+    BCSRGraph runs the BCSR kernel and an ELLGraph ``ell_spmm`` unless
+    ``impl='coo'`` (JAX's ``'xla'``) forces the gather path.
     """
     if impl not in ("auto", "coo"):
         raise ValueError(f"unknown spmm impl {impl!r}")
     if isinstance(g, BCSRGraph) and impl == "auto":
         return bcsr_spmm(g.tiles, x)
+    if isinstance(g, ELLGraph) and impl == "auto":
+        return ell_spmm(g.tables, x)
     return spmm_coo(g.row, g.col, g.val, x, g.n_nodes)

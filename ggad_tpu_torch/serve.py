@@ -6,9 +6,10 @@
     python -m ggad_tpu_torch.cli --dataset photo --score_only \
         --checkpoint_dir ckpts/photo --score_out scores.npz   # CLI
 
-A :class:`Scorer` prepares the graph, its BCSR tiles, the hoisted Â·x and
-the weights once; each ``score()`` is one eval forward (one BCSR kernel
-launch on a tile-dense graph) plus host-side metrics.
+A :class:`Scorer` prepares the graph, its forward BCSR tiles or ELL table,
+the hoisted Â·x and the weights once; each ``score()`` is one eval forward
+(one BCSR kernel launch on a tile-dense graph, the ELL table's gathers on a
+tile-sparse one) plus host-side metrics.
 """
 
 from __future__ import annotations

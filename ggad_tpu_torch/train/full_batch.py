@@ -1,19 +1,21 @@
 """Full-batch GGAD trainer (counterpart of ``ggad_tpu/train/full_batch.py``).
 
 A :class:`FullBatchTrainer` prepares the graph once (normalization, the
-forward BCSR tiles when they pay off, the hoisted Â·x) and owns the model
-and its optimizer. What only training reads (the transposed tiles, the
-seed-row subgraph and the labeled-column affinity subset) is built by
-:meth:`FullBatchTrainer.prepare_training` at the first step, so serving
-never holds it. ``train()`` runs forward, three-term loss, backward and Adam once per
-epoch, with the JAX trainer's log, eval and checkpoint cadence
-(``full_batch.py:454-551``); ``eval_scores`` is the scoring program that
-serving calls.
+forward BCSR tiles or ELL table of :func:`spmm_route`'s route, the hoisted
+Â·x) and owns the model and its optimizer. What only training reads (the
+transposed tiles or table, the seed-row subgraph and the labeled-column
+affinity subset) is built by :meth:`FullBatchTrainer.prepare_training` at
+the first step, so serving never holds it. ``train()`` runs forward,
+three-term loss, backward and Adam once per epoch, with the JAX trainer's
+log, eval and checkpoint cadence (``full_batch.py:454-551``);
+``eval_scores`` is the scoring program that serving calls.
 
 On a tile-dense graph an f32 step launches K1 twice (gcn2 forward on the
 tiles, backward on the transposed tiles). A bf16 step also computes the
 margin's affinity with K2 on the rectangular tiles of raw_adj[:, labeled]
-and its backward with two more K1 launches.
+and its backward with two more K1 launches. On a tile-sparse graph (the
+ELL route) gcn2, the seed aggregation and the margin's affinity run on
+sigma tables in plain PyTorch and launch neither kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +34,13 @@ from ggad_tpu_torch.graph import Graph, from_scipy, rows_subgraph
 from ggad_tpu_torch.interop import params_from_flax
 from ggad_tpu_torch.models.ggad import GGAD
 from ggad_tpu_torch.ops.bcsr_spmm import TILE, BCSRGraph, as_bcsr_graph
+from ggad_tpu_torch.ops.ell_spmm import (
+    ELLGraph,
+    ELLPair,
+    as_ell_graph,
+    ell_affinity_subset,
+    ell_sigma_from_coo,
+)
 from ggad_tpu_torch.ops.metrics import (
     average_precision,
     roc_auc,
@@ -50,47 +59,46 @@ MIN_EDGES_PER_TILE = 8.0
 MEM_BUDGET_BYTES = 4 << 30
 
 
-def routes_to_bcsr(adj: Graph, impl: str, *, dtype="float32") -> bool:
-    """Whether ``adj`` takes BCSR tiles — the routing of
+def spmm_route(adj: Graph, impl: str, *, dtype="float32") -> str:
+    """``"bcsr"``, ``"ell"`` or ``"coo"``: the route of
     ``ggad_tpu.train.full_batch.maybe_bcsr``, decided by the graph alone
     and never by the device.
 
     ``"auto"`` takes BCSR when the occupied 128×128 tiles hold at least
     ``MIN_EDGES_PER_TILE`` edges each and the forward + backward tile
-    stores fit ``MEM_BUDGET_BYTES`` (the same count as the JAX package, so
-    the same graphs take the same path), and the sparse ELL path
-    otherwise. ``"bcsr"`` forces the tiles; ``"coo"`` (JAX's ``"xla"``)
-    keeps the gather path. The ELL path is not ported yet and raises.
+    stores fit ``MEM_BUDGET_BYTES`` (halved for bf16; the same count as the
+    JAX package, so the same graphs take the same path), and the ELL sigma
+    tables otherwise. ``"bcsr"`` and ``"ell"`` force their route; ``"coo"``
+    (JAX's ``"xla"``) keeps the gather path.
     """
     if impl not in SPMM_IMPLS:
         raise ValueError(f"spmm_impl must be one of {SPMM_IMPLS}, "
                          f"got {impl!r}")
-    if impl == "coo":
-        return False
-    ell = NotImplementedError(
-        "the ELL (tile-sparse) SpMM path is not ported yet (ROADMAP "
-        "Queue 1, ELL slice); use spmm_impl='coo' or 'bcsr'")
-    if impl == "ell":
-        raise ell
-    if impl == "auto":
-        row, col, _ = adj.host_coo()
-        n_pad_tiles = (adj.n_nodes + TILE - 1) // TILE
-        tiles = np.unique(row // TILE * n_pad_tiles + col // TILE).shape[0]
-        mem = 2 * tiles * TILE * TILE * 4  # fwd + bwd tile stores
-        if dtype == "bfloat16":
-            mem //= 2
-        if (adj.n_edges / max(tiles, 1) < MIN_EDGES_PER_TILE
-                or mem > MEM_BUDGET_BYTES):
-            raise ell
-    return True
+    if impl != "auto":
+        return impl
+    row, col, _ = adj.host_coo()
+    n_pad_tiles = (adj.n_nodes + TILE - 1) // TILE
+    tiles = np.unique(row // TILE * n_pad_tiles + col // TILE).shape[0]
+    mem = 2 * tiles * TILE * TILE * 4  # fwd + bwd tile stores
+    if dtype == "bfloat16":
+        mem //= 2
+    if (adj.n_edges / max(tiles, 1) < MIN_EDGES_PER_TILE
+            or mem > MEM_BUDGET_BYTES):
+        return "ell"
+    return "bcsr"
 
 
 def maybe_bcsr(adj: Graph, impl: str, *, dtype="float32",
                transpose: bool = True):
-    """``adj`` with its BCSR tile pair (forward only unless ``transpose``)
-    when :func:`routes_to_bcsr` says so, else ``adj`` itself."""
-    if routes_to_bcsr(adj, impl, dtype=dtype):
+    """``adj`` with what :func:`spmm_route` picks: its BCSR tile pair, its
+    ELL sigma tables (each forward only unless ``transpose``), or ``adj``
+    itself."""
+    route = spmm_route(adj, impl, dtype=dtype)
+    if route == "bcsr":
         return as_bcsr_graph(adj, dtype=dtype, transpose=transpose)
+    if route == "ell":
+        return as_ell_graph(adj, layout="sigma", transpose=transpose,
+                            dtype=dtype)
     return adj
 
 
@@ -164,8 +172,10 @@ class FullBatchTrainer:
 
         adj, self.raw_adj = normalize_adj_reference(
             from_scipy(ds.adj, device=self.device))
-        # the forward tiles; prepare_training adds the transposed ones
-        self.adj = maybe_bcsr(adj, self.spmm_impl, dtype=self.spmm_dtype,
+        # decided once: adj and raw_adj share their edges, so their route
+        self.route = spmm_route(adj, self.spmm_impl, dtype=self.spmm_dtype)
+        # the forward tiles or table; prepare_training adds the transposed
+        self.adj = maybe_bcsr(adj, self.route, dtype=self.spmm_dtype,
                               transpose=False)
         self.seed_adj: Optional[Graph] = None
         self.aff_sub = None
@@ -188,27 +198,39 @@ class FullBatchTrainer:
     # ------------------------------------------------------------------
     def prepare_training(self) -> None:
         """Build what only a train step reads, once: the transposed tiles
-        (gcn2's backward), the seed-row subgraph (the generator
+        or table (gcn2's backward), the seed-row subgraph (the generator
         aggregation in O(E_seed)) and the margin's affinity subset at the
-        labeled nodes, in bf16 on a tile-dense raw_adj through K2 on
-        rectangular tiles (``full_batch.py:145-189``). raw_adj itself
-        needs no tiles."""
+        labeled nodes (``full_batch.py:145-217``). On a tile-dense raw_adj
+        the subset is edge-parallel in f32 and K2 on rectangular tiles in
+        bf16; on the ELL route it is rectangular sigma tables in both, and
+        the seed subgraph gets its own (``[S × N]`` forward, ``[N × S]``
+        backward). raw_adj itself needs no tiles or tables."""
         if self.aff_sub is not None:
             return
         ds = self.dataset
         graph = self.adj
-        if isinstance(graph, BCSRGraph):
+        if isinstance(graph, (BCSRGraph, ELLGraph)):
             self.adj = graph.with_transpose()
             graph = graph.graph
         self.seed_adj = rows_subgraph(graph, ds.abnormal_label_idx)
         labeled = np.concatenate([
             np.asarray(ds.normal_label_idx, np.int64),
             np.asarray(ds.abnormal_label_idx, np.int64)])
-        if (self.spmm_dtype == "bfloat16"
-                and routes_to_bcsr(self.raw_adj, self.spmm_impl,
-                                   dtype=self.spmm_dtype)):
+        dtype = self.spmm_dtype
+        if self.route == "ell":
+            self.aff_sub = ell_affinity_subset(self.raw_adj, labeled,
+                                               dtype=dtype)
+            sg = self.seed_adj
+            sr, sc, sv = sg.host_coo()
+            self.seed_adj = ELLGraph(graph=sg, layout="sigma", tables=ELLPair(
+                fwd=ell_sigma_from_coo(sr, sc, sv, sg.n_nodes, dtype=dtype,
+                                       device=self.device),
+                bwd=ell_sigma_from_coo(sc, sr, sv, ds.n_nodes, dtype=dtype,
+                                       device=self.device),
+                n_nodes=sg.n_nodes))
+        elif self.route == "bcsr" and dtype == "bfloat16":
             self.aff_sub = tile_affinity_subset(self.raw_adj, labeled,
-                                                dtype=self.spmm_dtype)
+                                                dtype=dtype)
         else:
             self.aff_sub = affinity_subset(self.raw_adj, labeled)
 

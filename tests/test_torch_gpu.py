@@ -10,7 +10,10 @@ affinity feeds it) f32 1e-5, bf16 1e-4 (the CSR walk sums lane slices,
 then non-zeros, then lanes and warps, the plain version each tile's dot
 products, then its columns, then the tiles: two orders of f32 sums of
 terms bounded by |M[r,c]|, since the rows are unit vectors);
-gradients and train-step losses on the card against the CPU 1e-4.
+gradients and train-step losses on the card against the CPU 1e-4. The
+ELL route (plain PyTorch, no hand-written kernel) is held on the card
+against the same ops on the CPU: f32 values 1e-5, bf16 values and all
+gradients 1e-4.
 """
 
 import numpy as np
@@ -239,5 +242,108 @@ def test_train_step_launches_and_losses(cuda, dtype):
                                                   else 4)
             assert pk2.bcsr_sddmm_colsum.launches - k2 == (
                 0 if dtype == "float32" else 1)
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert a.item() == pytest.approx(b.item(), rel=1e-4, abs=1e-4)
+
+
+def ell_graph_coo(n=2000, seed=0):
+    """Degrees 0..23 (every sigma bucket from K 2 to 32 above the 256-row
+    floor, some empty rows) and one hub row of degree 150 past the cap of
+    64, whose tail is the COO residual."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 24, n)
+    deg[7] = 150
+    row = np.repeat(np.arange(n), deg)
+    col = rng.integers(0, n, row.shape[0])
+    val = rng.random(row.shape[0]).astype(np.float32)
+    return row, col, val
+
+
+def ell_ops(device, dtype, d, coo):
+    """The ELL products on ``device``: sigma and flat ``ell_spmm``, the
+    square affinity column sums and the labeled-subset column sums, and
+    the gradients of one loss over all four, on the CPU. Every input and
+    cotangent is made on the CPU, so both devices round the same f32
+    values to bf16 (a value one f32 ulp apart can round to another bf16)."""
+    from ggad_tpu_torch.ops import ell_spmm as pe
+
+    n = 2000
+    g = pg.add_self_loops(pg.from_coo(*coo, n, device=device))
+    sigma = pe.as_ell_graph(g, layout="sigma", dtype=dtype).tables
+    flat = pe.as_ell_graph(g, dtype=dtype).tables
+    sub = pe.ell_affinity_subset(g, np.arange(3, n, 7), dtype=dtype)
+    assert sigma.fwd.n_overflow and flat.fwd.n_overflow
+    gen = torch.Generator().manual_seed(d)
+    x0 = torch.randn(n, d, generator=gen)
+    x = x0.to(device, copy=True).requires_grad_()
+    e = l2_normalize_rows(x0).to(device, copy=True).requires_grad_()
+    outs = [pe.ell_spmm(sigma, x), pe.ell_spmm(flat, x),
+            pe.ell_affinity_colsum(sigma, e), pe.ell_subset_colsum(sub, e)]
+    cots = [torch.randn(o.shape, generator=gen).to(device) for o in outs]
+    sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+    return [o.detach().cpu() for o in outs] + [x.grad.cpu(), e.grad.cpu()]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [20, 33, 300])
+def test_ell_ops_on_the_card_match_the_cpu(cuda, dtype, d):
+    """The ELL route's products and column sums, values and gradients, on
+    the card against the same ops on the CPU (the same rounding points;
+    the sums run in another order): 1e-5 f32 values, 1e-4 otherwise. No
+    hand-written kernel is launched."""
+    coo = ell_graph_coo()
+    k1, k2 = pb.bcsr_spmm.launches, pk2.bcsr_sddmm_colsum.launches
+    on_card = ell_ops(cuda, dtype, d, coo)
+    torch.cuda.synchronize()
+    assert (pb.bcsr_spmm.launches, pk2.bcsr_sddmm_colsum.launches) == (k1, k2)
+    on_cpu = ell_ops("cpu", dtype, d, coo)
+    tol = 1e-5 if dtype == "float32" else 1e-4
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        t = tol if i < 4 else 1e-4
+        torch.testing.assert_close(a, b, rtol=t, atol=t)
+    assert on_card[1].shape == (2000, d) and on_card[3].shape == (286,)
+
+
+def test_ell_chunked_gathers_on_the_card(cuda, monkeypatch):
+    """Bucket gathers and the residual split into row chunks on the card
+    give the CPU's values (1e-5) and gradients (1e-4)."""
+    from ggad_tpu_torch.ops import ell_spmm as pe
+
+    coo = ell_graph_coo(seed=1)
+    monkeypatch.setattr(pe, "_OV_CHUNK_ELEMS", 1 << 14)
+    on_card = ell_ops(cuda, "float32", 300, coo)
+    on_cpu = ell_ops("cpu", "float32", 300, coo)
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        t = 1e-5 if i < 4 else 1e-4
+        torch.testing.assert_close(a, b, rtol=t, atol=t)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_train_step_on_the_card_matches_the_cpu(cuda, dtype):
+    """One train step on the ELL route (sigma tables for gcn2, the seed
+    aggregation and the margin's subset) launches neither kernel; its
+    losses equal the CPU's with the same weights and noise (1e-4)."""
+    from ggad_tpu_torch.datasets.synthetic import synthetic_gad
+    from ggad_tpu_torch.ops.ell_spmm import ELLAffinitySubset, ELLGraph
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    ds = synthetic_gad(n_nodes=1500, avg_degree=20, feat_dim=64,
+                       n_communities=4, anomaly_rate=0.1, seed=1)
+    losses = {}
+    for device in (cuda, "cpu"):
+        tr = FullBatchTrainer(ds, embedding_dim=96, spmm_impl="ell",
+                              spmm_dtype=dtype, noise_mean=0.02,
+                              noise_std=0.0, device=device)
+        tr.model.load_state_dict(tr.init())
+        k1, k2 = pb.bcsr_spmm.launches, pk2.bcsr_sddmm_colsum.launches
+        losses[str(device)] = tr.train_step(
+            torch.Generator(tr.device).manual_seed(0))
+        assert isinstance(tr.adj, ELLGraph)
+        assert isinstance(tr.seed_adj, ELLGraph)
+        assert isinstance(tr.aff_sub, ELLAffinitySubset)
+        if device == cuda:
+            torch.cuda.synchronize()
+            assert (pb.bcsr_spmm.launches - k1,
+                    pk2.bcsr_sddmm_colsum.launches - k2) == (0, 0)
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert a.item() == pytest.approx(b.item(), rel=1e-4, abs=1e-4)

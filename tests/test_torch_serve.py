@@ -26,6 +26,7 @@ from ggad_tpu_torch.serve import Scorer, score_dataset
 from ggad_tpu_torch.train.checkpoint import Checkpointer
 from ggad_tpu_torch.train.full_batch import FullBatchTrainer, maybe_bcsr
 from ggad_tpu_torch.ops.bcsr_spmm import BCSRGraph, bcsr_spmm
+from ggad_tpu_torch.ops.ell_spmm import ELLGraph
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_H = 24
@@ -39,7 +40,7 @@ def jax_side():
     ds = jax_synthetic_gad(**DS_KW)
     scores = {}
     params = None
-    for impl in ("xla", "pallas"):
+    for impl in ("xla", "pallas", "ell"):
         tr = JaxTrainer(ds, num_epoch=0, embedding_dim=N_H, spmm_impl=impl)
         if params is None:
             params, _ = tr.init(jax.random.PRNGKey(3))
@@ -60,7 +61,7 @@ def ckpt_dir(jax_side, tmp_path):
 
 @pytest.mark.parametrize("impl,jax_impl,dtype", [
     ("coo", "xla", "float32"), ("bcsr", "pallas", "float32"),
-    ("auto", "pallas", "float32")])
+    ("auto", "pallas", "float32"), ("ell", "ell", "float32")])
 def test_score_dataset_matches_jax(jax_side, ckpt_dir, impl, jax_impl, dtype):
     _, scores = jax_side
     j_scores, (j_auc, j_ap) = scores[jax_impl]
@@ -93,6 +94,30 @@ def test_scorer_answers_many_requests(ckpt_dir):
     assert bf16.trainer.adj.tiles.bwd.values.dtype == torch.bfloat16
     np.testing.assert_allclose(bf16.score().scores, first.scores,
                                rtol=2e-2, atol=2e-2)
+
+
+def test_ell_scorer_serves_the_forward_table(jax_side, ckpt_dir):
+    """The ELL route serves from the forward table alone: f32 scores equal
+    JAX's ELL scores (1e-5), bf16 tables stay within bf16 rounding, and
+    training adds the transposed table."""
+    _, scores = jax_side
+    ds = synthetic_gad(**DS_KW)
+    f32 = Scorer(ckpt_dir, ds, embedding_dim=N_H, spmm_impl="ell",
+                 device="cpu")
+    bf16 = Scorer(ckpt_dir, ds, embedding_dim=N_H, spmm_impl="ell",
+                  spmm_dtype="bfloat16", device="cpu")
+    for sc in (f32, bf16):
+        assert isinstance(sc.trainer.adj, ELLGraph)
+        assert sc.trainer.adj.tables.bwd is None
+        assert sc.trainer.seed_adj is None and sc.trainer.aff_sub is None
+    got = f32.score()
+    np.testing.assert_allclose(got.scores, scores["ell"][0], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(bf16.score().scores, got.scores, rtol=2e-2,
+                               atol=2e-2)
+    bf16.trainer.prepare_training()
+    bwd = bf16.trainer.adj.tables.bwd
+    assert bwd.buckets[0].val.dtype == torch.bfloat16
 
 
 def test_score_without_checkpoint_uses_seeded_init(tmp_path):
@@ -158,8 +183,8 @@ def test_checkpointer_keeps_newest(tmp_path):
 
 def test_maybe_bcsr_routing():
     """Routing by the graph: a tile-dense graph takes BCSR under 'auto',
-    a tile-sparse one the (not yet ported) ELL path; 'coo' keeps COO. A
-    BCSR graph carries the forward and the transposed tile sets."""
+    a tile-sparse one the ELL sigma tables; 'coo' keeps COO. A BCSR or
+    ELL graph carries the forward and the transposed tiles or table."""
     from ggad_tpu_torch.graph import from_coo, from_scipy
 
     dense = from_scipy(synthetic_gad(**DS_KW).adj, device="cpu")
@@ -170,8 +195,11 @@ def test_maybe_bcsr_routing():
     n = 4000       # one edge per row, columns scattered: ~1 edge a tile
     sparse = from_coo(np.arange(n), np.random.default_rng(0).permutation(n),
                       None, n, device="cpu")
-    with pytest.raises(NotImplementedError):
-        maybe_bcsr(sparse, "auto")
+    ell = maybe_bcsr(sparse, "auto")
+    assert isinstance(ell, ELLGraph) and ell.layout == "sigma"
+    assert ell.tables.fwd.n_rows == ell.tables.bwd.n_rows == n
+    assert maybe_bcsr(sparse, "auto", transpose=False).tables.bwd is None
+    assert isinstance(maybe_bcsr(dense, "ell"), ELLGraph)
     assert isinstance(maybe_bcsr(sparse, "bcsr"), BCSRGraph)
     with pytest.raises(ValueError):
         maybe_bcsr(dense, "xla")
@@ -218,4 +246,4 @@ def test_port_imports_neither_jax_nor_ggad_tpu():
     proc = subprocess.run([sys.executable, "-c", ISOLATION], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15     # every module was imported
+    assert int(proc.stdout.strip()) >= 31     # every module was imported

@@ -8,11 +8,15 @@ same rng as ``emb_abnormal - emb[seed]``. Tolerances:
   * one step, f32 routes (coo, bcsr-f32): all six ``GGADLosses`` fields to
     1e-5 and every parameter's gradient to 1e-4 rel/abs (true-f32 on both
     sides; sums in another order);
-  * one step, bcsr-bf16: 1e-3 on both (bf16 tiles and operands rounded at
-    the same places on both sides; the rounded sums differ in order);
+  * one step, bcsr-bf16 and ell-bf16: 1e-3 on both (bf16 tiles or tables
+    and operands rounded at the same places on both sides; the rounded
+    sums differ in order);
   * 5-epoch ``train()`` with ``noise_std=0`` (the trajectory pattern of
     ``tests/test_parity_trajectory.py``): losses and AUROC/AP to 1e-4
     (f32) and 1e-3 (bf16), with Adam and with AdamW.
+
+The ELL routes force the sigma tables (``spmm_impl="ell"`` on both sides:
+this graph is tile-dense, and JAX's ``"auto"`` takes ELL only on a TPU).
 """
 
 import json
@@ -32,7 +36,9 @@ from ggad_tpu_torch.cli import main as cli_main
 from ggad_tpu_torch.datasets.synthetic import synthetic_gad
 from ggad_tpu_torch.interop import params_to_flax
 from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+from ggad_tpu_torch.graph import Graph
 from ggad_tpu_torch.ops.bcsr_spmm import BCSRGraph, bcsr_spmm
+from ggad_tpu_torch.ops.ell_spmm import ELLAffinitySubset, ELLGraph
 from ggad_tpu_torch.ops.sddmm import AffinitySubset, TileAffinitySubset
 from ggad_tpu_torch.train.full_batch import (
     FullBatchTrainer,
@@ -46,7 +52,15 @@ DS_KW = dict(n_nodes=300, avg_degree=8, feat_dim=16, n_communities=3,
              anomaly_rate=0.1, seed=2)
 ROUTES = {"coo": ("coo", "xla", "float32"),
           "bcsr-f32": ("bcsr", "pallas", "float32"),
-          "bcsr-bf16": ("bcsr", "pallas", "bfloat16")}
+          "bcsr-bf16": ("bcsr", "pallas", "bfloat16"),
+          "ell-f32": ("ell", "ell", "float32"),
+          "ell-bf16": ("ell", "ell", "bfloat16")}
+# what prepare_training builds on each route: adj, seed_adj, aff_sub
+BUILT = {"coo": (Graph, Graph, AffinitySubset),
+         "bcsr-f32": (BCSRGraph, Graph, AffinitySubset),
+         "bcsr-bf16": (BCSRGraph, Graph, TileAffinitySubset),
+         "ell-f32": (ELLGraph, ELLGraph, ELLAffinitySubset),
+         "ell-bf16": (ELLGraph, ELLGraph, ELLAffinitySubset)}
 LOSS_FIELDS = ("total", "bce", "margin", "rec", "affinity_normal",
                "affinity_outlier")
 
@@ -80,7 +94,7 @@ def flat(tree):
 
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_one_step_losses_and_grads_match_jax(jax_params, route):
-    tol = 1e-3 if route == "bcsr-bf16" else None
+    tol = 1e-3 if route.endswith("bf16") else None
     kw = dict(noise_mean=0.02, noise_std=0.01, pos_weight=2.0)
     jt = jax_trainer(route, jax_params, **kw)
     rng = jax.random.PRNGKey(7)
@@ -103,9 +117,8 @@ def test_one_step_losses_and_grads_match_jax(jax_params, route):
 
     pt = port_trainer(route, jax_params, **kw)
     pt.prepare_training()
-    assert isinstance(pt.adj, BCSRGraph) == (route != "coo")
-    assert isinstance(pt.aff_sub, TileAffinitySubset if route == "bcsr-bf16"
-                      else AffinitySubset)
+    built = (pt.adj, pt.seed_adj, pt.aff_sub)
+    assert [type(x) for x in built] == list(BUILT[route])
     pt.model.load_state_dict(pt.initial_state())
     losses = pt.compute_losses(torch.from_numpy(noise))
     losses.total.backward()
@@ -124,11 +137,12 @@ def test_one_step_losses_and_grads_match_jax(jax_params, route):
 
 @pytest.mark.parametrize("route,weight_decay", [
     ("coo", 0.0), ("coo", 1e-2), ("bcsr-f32", 0.0), ("bcsr-f32", 1e-2),
-    ("bcsr-bf16", 0.0), ("bcsr-bf16", 1e-2)])
+    ("bcsr-bf16", 0.0), ("bcsr-bf16", 1e-2), ("ell-f32", 0.0),
+    ("ell-bf16", 0.0)])
 def test_train_trajectory_matches_jax(jax_params, route, weight_decay):
     """5 epochs of ``train()`` with Adam (weight_decay 0) and AdamW, every
     epoch logged, evaluated every second epoch."""
-    tol = 1e-3 if route == "bcsr-bf16" else 1e-4
+    tol = 1e-3 if route.endswith("bf16") else 1e-4
     kw = dict(num_epoch=5, log_every=1, eval_every=2, noise_mean=0.02,
               noise_std=0.0, lr=5e-3, weight_decay=weight_decay)
     j_res = jax_trainer(route, jax_params, **kw).train()
