@@ -30,7 +30,19 @@ Phases (any failure raises and the script exits non-zero):
      (f32 scores against a CPU run), 10 + 10 ``train()`` epochs, step
      times and stages, prepare time and memory, 3 f32 steps against the
      CPU;
-  6. hold each kernel against its plain PyTorch version on the card, in f32
+  6. the minibatch (DGraph) path: the full-size DGraph-shaped graph
+     (``load_dataset("dgraphfin")``'s synthetic fallback, 3,700,550 nodes,
+     17 features) through ``MiniBatchTrainer`` at emb 64, fanouts 16/8,
+     batch 150 + 50, 150 batches an epoch: the host build timed by part
+     (load, ``adj + I``, split, the trainer's preparation) and the device
+     memory the table and features hold; ``train()`` for 2 epochs with
+     validation at the first and the last and the test metrics; the step
+     median (CUDA events), one epoch's wall time, ``score_nodes`` over the
+     validation split in nodes/s with the host metrics apart; 3 steps and
+     4,096 scores on the card against the CPU from the same weights,
+     batches and draws (ids equal, losses and scores within 1e-4). Plain
+     PyTorch: K1 and K2 must launch 0 times in the phase;
+  7. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16: K1 at the photo serving shapes, on the transposed tile set
      and on the rectangular sets of the labeled-column subset, at the tile
      heights 128, 256, 512 and 1024 (the sweep of
@@ -42,13 +54,13 @@ Phases (any failure raises and the script exits non-zero):
      computing the same function, and compute each kernel's bound from this
      run's non-zeros (with the bound of the CSR walk the kernels implement
      beside it, and the bytes the walk gathers through L2);
-  7. profile a request and a train step of each precision, photo and
-     ELL: the device time against the wall time (the card's busy share),
-     the device operations a call and the largest kernels; the photo
-     step's kernels alone and the ELL step's table products alone. The
-     profiler runs only after the timed phases 3 to 5, since it adds to
-     the host's launch time;
-  8. print the kernels' JSON line, the card line and, last,
+  8. profile a request and a train step of each precision, photo and
+     ELL, and a minibatch step: the device time against the wall time (the
+     card's busy share), the device operations a call and the largest
+     kernels; the photo step's kernels alone and the ELL step's table
+     products alone. The profiler runs only after the timed phases 3 to 6,
+     since it adds to the host's launch time;
+  9. print the kernels' JSON line, the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``ggad_tpu``.
@@ -75,6 +87,10 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-5}     # tests/test_torch_bcsr_spmm.py
 K2_TOL = {"float32": 1e-5, "bfloat16": 1e-4}  # as tests/test_torch_gpu.py
 SCORE_TOL = 1e-4                              # card f32 scores vs the CPU run
 LOSS_TOL = 1e-4                               # card f32 losses vs the CPU run
+MB_EPOCHS = 2                                 # minibatch train() epochs
+MB_STEPS = 20                                 # timed minibatch steps
+MB_CPU_STEPS = 3                              # minibatch steps vs the CPU
+MB_CPU_SCORES = 4096                          # minibatch scores vs the CPU
 KERNEL_SOURCES = ["bcsr_spmm", "bcsr_sddmm"]
 K1_REPLACES = "ggad_tpu/ops/pallas_spmm.py:96"
 STUDY_REPLACES = "scripts/tile_rows_study.py:52"   # K1's body, swept
@@ -957,6 +973,186 @@ def sparse_phase(cuda, k1: dict, k2: dict, later: list) -> None:
     print("ELL phase: K1 launches 0, K2 launches 0")
 
 
+def minibatch_phase(cuda, k1: dict, k2: dict, later: list) -> None:
+    """Phase 6: the DGraph path on the full-size DGraph-shaped graph
+    through ``MiniBatchTrainer`` at the model's full width (emb 64,
+    fanouts 16/8, batch 150 + 50, 150 batches an epoch); K1 and K2 must
+    not launch anywhere in the phase; appends the profiled step line to
+    ``later``."""
+    import math
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from ggad_tpu_torch.datasets.loaders import load_dataset
+    from ggad_tpu_torch.datasets.splits import minibatch_split_for
+    from ggad_tpu_torch.ops import metrics as pm
+    from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+    from ggad_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    t_phase = t0 = time.perf_counter()
+    ds = load_dataset("dgraphfin")       # the synthetic fallback, scale 1
+    t1 = time.perf_counter()
+    adj = ds.adj + sp.eye(ds.n_nodes, format="csr", dtype=np.float32)
+    t2 = time.perf_counter()
+    idx_train, idx_valid, idx_test, labels, idx_anom = minibatch_split_for(
+        ds.name, ds.ano_labels, seed=0)
+    t3 = time.perf_counter()
+    inputs = dict(adj=adj, features=ds.features, labels=labels,
+                  idx_train=idx_train, idx_anomaly=idx_anom,
+                  idx_valid=idx_valid, idx_test=idx_test)
+    shape = dict(emb_dim=64, fanout1=16, fanout2=8, batch_size=150,
+                 n_anom_per_batch=50, num_batches=150)
+    base = torch.cuda.memory_allocated()
+    tr = MiniBatchTrainer(**inputs, **shape, num_epochs=MB_EPOCHS,
+                          valid_epochs=MB_EPOCHS - 1, device=cuda)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    held = (torch.cuda.memory_allocated() - base) / 1e6
+    table_mb = (tr.table.indptr.numel() + tr.table.indices.numel()) * 4e-6
+    print(f"minibatch graph (DGraph-shaped): nodes={ds.n_nodes} "
+          f"edges={ds.n_edges} (+I {adj.nnz}) feats={ds.feat_dim}; split "
+          f"train={len(idx_train)} valid={len(idx_valid)} "
+          f"test={len(idx_test)} seeds={len(idx_anom)}; pools normal="
+          f"{len(tr._train_pool)} anomaly={len(tr._anom_pool)}")
+    print(f"  host build: load_dataset {t1 - t0:.3f} s, adj + I "
+          f"{t2 - t1:.3f} s, minibatch_split_for {t3 - t2:.3f} s, trainer "
+          f"preparation (smoothing, pools, table and features to the card) "
+          f"{t4 - t3:.3f} s")
+    print(f"  device memory held: {held:.1f} MB (table {table_mb:.1f} MB, "
+          f"features {tr.feats.numel() * 4e-6:.1f} MB)")
+
+    t0 = time.perf_counter()
+    res = tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [r["loss"] for r in res.history]
+    vals = [(r["epoch"], r["val_auc"], r["val_ap"]) for r in res.history
+            if "val_auc" in r]
+    if (len(losses) != MB_EPOCHS or not all(map(math.isfinite, losses))
+            or len(vals) < 2 or vals[0][0] >= MB_EPOCHS - 1
+            or not all(math.isfinite(v) for v in res.test_metrics.values())
+            or not 0 <= res.best_epoch < MB_EPOCHS):
+        raise RuntimeError(f"minibatch train(): bad result {res.history} "
+                           f"{res.test_metrics}")
+    print(f"minibatch train(): {MB_EPOCHS} epochs + {len(vals)} validations "
+          f"+ test {wall:.3f} s (steps alone {res.train_time_s:.3f} s); "
+          + json.dumps({"losses": [{k: r[k] for k in (
+              "loss", "loss_cls", "loss_constraint", "loss_rec")}
+              for r in res.history],
+              "val": [{"epoch": e, "auc": a, "ap": p} for e, a, p in vals],
+              "best_epoch": res.best_epoch, "test": res.test_metrics}))
+
+    gen = torch.Generator(cuda).manual_seed(1)
+    batches = tr.draw_batches(np.random.default_rng(1))
+    b = batches.shape[1]
+    u1 = tr.draw((tr.num_batches, b, 16), gen)
+    u2 = tr.draw((tr.num_batches, b * 16, 8), gen)
+    for i in range(3):                                       # warm-up
+        tr.train_step(batches[i], u1[i], u2[i])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(MB_STEPS + 1)]
+    ev[0].record()
+    for i in range(MB_STEPS):
+        tr.train_step(batches[3 + i], u1[3 + i], u2[3 + i])
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    steps = [ev[i].elapsed_time(ev[i + 1]) for i in range(MB_STEPS)]
+    step_ms = statistics.median(steps)
+    t0 = time.perf_counter()
+    last = tr.train_epoch(batches, gen)
+    torch.stack(list(last)).tolist()
+    epoch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probs = tr.score_nodes(None, idx_valid)
+    score_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preds = pm.prob_to_pred(probs, tr.thres)
+    pm.roc_auc(labels[idx_valid], probs)
+    pm.average_precision(labels[idx_valid], probs)
+    pm.f1_scores(labels[idx_valid], preds)
+    pm.gmean_from_confusion(pm.confusion(labels[idx_valid], preds))
+    metrics_s = time.perf_counter() - t0
+    print(f"  step ms (CUDA events, {MB_STEPS} after 3 warm-up) "
+          f"{[round(x, 3) for x in steps]} (median {step_ms:.3f}); one epoch "
+          f"({tr.num_batches} steps, one read) {epoch_s:.3f} s; score_nodes "
+          f"over the validation split ({len(idx_valid)} nodes) {score_s:.3f} "
+          f"s = {len(idx_valid) / score_s:.0f} nodes/s; host metrics on it "
+          f"{metrics_s:.3f} s")
+    later.append(partial(busy_line, "minibatch train step",
+                         lambda: tr.train_step(batches[0], u1[0], u2[0]),
+                         step_ms, MB_STEPS))
+    minibatch_card_vs_cpu(tr, inputs, shape, cuda)
+
+    if bcsr_spmm.launches or bcsr_sddmm_colsum.launches:
+        raise RuntimeError(f"the minibatch phase launched K1 "
+                           f"{bcsr_spmm.launches} and K2 "
+                           f"{bcsr_sddmm_colsum.launches} times")
+    for rec in (*k1.values(), *k2.values()):
+        rec["paths"]["minibatch (DGraph)"] = 0
+    print(f"minibatch phase: K1 launches 0, K2 launches 0; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def minibatch_card_vs_cpu(tr, inputs: dict, shape: dict, cuda) -> None:
+    """``MB_CPU_STEPS`` steps from the same initial weights, batches and
+    draws (made once on the CPU) on the card and on the CPU: the sampled
+    ids equal, the four loss fields within ``LOSS_TOL``; then
+    ``score_nodes`` on ``MB_CPU_SCORES`` nodes on the same draws, within
+    ``SCORE_TOL``."""
+    import numpy as np
+    import torch
+
+    from ggad_tpu_torch.sampler.neighbor import sample_two_hop
+    from ggad_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    gen = torch.Generator().manual_seed(2)
+    cpu = MiniBatchTrainer(**inputs, **shape, device="cpu")
+    batches = cpu.draw_batches(np.random.default_rng(2))[:MB_CPU_STEPS]
+    b = batches.shape[1]
+    u1 = torch.rand(MB_CPU_STEPS, b, 16, generator=gen)
+    u2 = torch.rand(MB_CPU_STEPS, b * 16, 8, generator=gen)
+    n_chunks = -(-MB_CPU_SCORES // cpu.eval_batch)
+    ue = torch.rand(n_chunks, cpu.eval_batch, 16, generator=gen)
+    nodes = np.random.default_rng(3).choice(tr.idx_valid, MB_CPU_SCORES,
+                                            replace=False)
+    runs = []
+    for t in (tr, cpu):                 # both start from the seed-0 init
+        dev = t.device
+        t.reset()
+        ids = [torch.cat([x.reshape(-1).cpu() for x in sample_two_hop(
+            t.table, batches[i].to(dev), 16, 8, u1[i].to(dev),
+            u2[i].to(dev))[::2]]) for i in range(MB_CPU_STEPS)]
+        losses = [[float(x) for x in t.train_step(
+            batches[i].to(dev), u1[i].to(dev), u2[i].to(dev))]
+            for i in range(MB_CPU_STEPS)]
+        t.draws = lambda s: ue
+        scores = t.score_nodes(None, nodes)
+        t.draws = None
+        runs.append((ids, losses, scores))
+    (card_ids, card, card_s), (cpu_ids, ref, cpu_s) = runs
+    if not all(torch.equal(a, c) for a, c in zip(card_ids, cpu_ids)):
+        raise RuntimeError("minibatch: the card sampled other ids than the "
+                           "CPU from the same draws")
+    diff = max(abs(a - c) for sa, sc in zip(card, ref)
+               for a, c in zip(sa, sc))
+    for sa, sc in zip(card, ref):
+        for a, c in zip(sa, sc):
+            if not abs(a - c) <= LOSS_TOL * (1 + abs(c)):
+                raise RuntimeError(f"minibatch: card losses {card} vs CPU "
+                                   f"{ref}")
+    np.testing.assert_allclose(card_s, cpu_s, rtol=SCORE_TOL, atol=SCORE_TOL)
+    print(f"minibatch card vs CPU, {MB_CPU_STEPS} steps from the same "
+          f"weights, batches and draws: sampled ids equal; four loss fields "
+          f"max|d| {diff:.3g} (tol {LOSS_TOL}); totals card "
+          f"{[round(x[0], 6) for x in card]} cpu "
+          f"{[round(x[0], 6) for x in ref]}; score_nodes on {MB_CPU_SCORES} "
+          f"nodes max|d| {np.abs(card_s - cpu_s).max():.3g} "
+          f"(tol {SCORE_TOL})")
+
+
 def kernel_record(name, source, replaces, rec) -> dict:
     paths = rec.get("paths", {})
     out = {"name": name, "route": "cuda", "source": source,
@@ -1003,6 +1199,7 @@ def main() -> int:
     serving_phase(cuda, k1, later)
     training_phase(cuda, k1, k2, later)
     sparse_phase(cuda, k1, k2, later)
+    minibatch_phase(cuda, k1, k2, later)
     kernel_phase(cuda, k1, k2)
     for line in later:
         print(line())

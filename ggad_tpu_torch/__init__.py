@@ -11,7 +11,10 @@ kernel, forward and backward, on a tile-dense graph, and through the ELL
 sigma tables on a tile-sparse one), the three-term loss (in bf16 mode on
 tiles the affinity through the hand-written SDDMM kernel),
 ``train.full_batch.FullBatchTrainer.train``, checkpoints,
-``serve.score_dataset`` and the CLI (training and ``--score_only``).
+``serve.score_dataset``; single-device minibatch GGAD (the DGraph path:
+``sampler``, ``models.sage``, ``train.minibatch.MiniBatchTrainer``,
+``train.config``); and the CLI (training, ``--score_only``,
+``--model ggad-minibatch``, ``--config``).
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,16 @@
 """Command-line entry point of the port: ``python -m ggad_tpu_torch.cli``.
 
-Two GGAD routes of ``ggad_tpu.cli`` (``cli.py:120-173``): training (the
-default; per-dataset defaults from the preset registry, reference
-``run.py:38-66``) and ``--score_only``, which restores ``--checkpoint_dir``
-and scores the dataset. Both run on the card unless ``--device cpu`` is
-given. ``--spmm_impl`` picks the sparse route (``auto``: BCSR tiles on a
-tile-dense graph, ELL tables on a tile-sparse one) and ``--reorder``
-RCM-renumbers the nodes first. The last line of the output is one JSON
-record.
+The routes of ``ggad_tpu.cli`` that the port has (``cli.py:97-235``):
+full-batch GGAD training (the default; per-dataset defaults from the
+preset registry, reference ``run.py:38-66``), ``--score_only``, which
+restores ``--checkpoint_dir`` and scores the dataset, minibatch GGAD
+(``--model ggad-minibatch``, the DGraph path) and ``--config``, a YAML
+config whose list-valued keys expand to a grid (``--multi_run`` runs all
+of it and aggregates). All run on the card unless ``--device cpu`` is
+given. ``--spmm_impl`` picks the full-batch sparse route (``auto``: BCSR
+tiles on a tile-dense graph, ELL tables on a tile-sparse one) and
+``--reorder`` RCM-renumbers the nodes first. The last line of the output
+is one JSON record.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", type=str, default="synthetic",
                    help="photo|reddit|Amazon|t_finance|elliptic|dgraphfin|"
                         "synthetic|synthetic_<name>")
-    p.add_argument("--model", type=str, default="ggad", choices=["ggad"])
+    p.add_argument("--model", type=str, default="ggad",
+                   choices=["ggad", "ggad-minibatch"])
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
@@ -49,6 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_jsonl", type=str, default=None,
                    help="write per-epoch metric records to this jsonl file")
     p.add_argument("--checkpoint_dir", type=str, default=None)
+    p.add_argument("--config", type=str, default=None,
+                   help="YAML config (list-valued keys expand to a grid)")
+    p.add_argument("--multi_run", action="store_true",
+                   help="run the full config grid, aggregate mean±std")
     p.add_argument("--scan_steps", type=int, default=1,
                    help="steps between host reads of the loss")
     p.add_argument("--retries", type=int, default=0,
@@ -66,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.config:
+        return run_from_config(args)
+    if args.score_only and args.model != "ggad":
+        raise SystemExit("--score_only serves --model ggad only")
     if args.score_only and not args.checkpoint_dir:
         raise SystemExit("--score_only requires --checkpoint_dir")
 
@@ -82,6 +94,11 @@ def main(argv=None) -> int:
           f"seeds={len(ds.abnormal_label_idx)}")
     if args.score_only:
         return score(args, ds)
+    if args.model == "ggad-minibatch":
+        from ggad_tpu_torch.train.baselines import run_minibatch_model
+
+        print(json.dumps(run_minibatch_model(args.model, ds, args)))
+        return 0
     return train(args, ds)
 
 
@@ -148,6 +165,46 @@ def train(args, ds) -> int:
                       "spmm_route": built[-1].route,
                       "auc": res.final_auc, "ap": res.final_ap,
                       "wall_time_s": res.wall_time_s}))
+    return 0
+
+
+def run_from_config(args) -> int:
+    """The YAML config route (reference ``src/main.py``): one minibatch
+    GGAD run of the grid's first combination, or, with ``--multi_run``,
+    every combination and their mean ± std."""
+    from ggad_tpu_torch.datasets.loaders import load_dataset
+    from ggad_tpu_torch.train.baselines import minibatch_trainer
+    from ggad_tpu_torch.train.config import grid, load_config, multi_run
+
+    cfg = load_config(args.config)
+
+    def run_one(cnf: dict) -> dict:
+        ds = load_dataset(cnf["data_name"], data_dir=cnf.get("data_dir"),
+                          seed=cnf.get("seed", 72),
+                          synthetic_scale=args.synthetic_scale)
+        tr = minibatch_trainer(
+            ds, split_seed=cnf.get("seed", 72),
+            test_ratio=cnf.get("test_ratio", 0.67),
+            emb_dim=cnf.get("emb_size", 64),
+            lr=cnf.get("lr", 1e-3),
+            weight_decay=cnf.get("weight_decay", 0.007),
+            batch_size=cnf.get("batch_size", 150),
+            num_epochs=args.num_epoch or cnf.get("num_epochs", 100),
+            valid_epochs=cnf.get("valid_epochs", 5),
+            thres=cnf.get("thres", 0.4),
+            seed=cnf.get("seed", 72),
+            device=args.device,
+        )
+        res = tr.train(verbose=True)
+        out = dict(res.test_metrics)
+        out["best_val_auc"] = res.best_val_auc
+        return out
+
+    if args.multi_run:
+        agg = multi_run(cfg, run_one)
+        print(json.dumps({k: v for k, v in agg.items() if k != "runs"}))
+    else:
+        print(json.dumps(run_one(grid(cfg)[0])))
     return 0
 
 

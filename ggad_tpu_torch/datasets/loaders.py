@@ -5,8 +5,9 @@
     ``Attributes``/``X``, ``Label``/``gnd``, optional
     ``str_anomaly_label``/``attr_anomaly_label``) — reference
     ``utils.py:66-87``.
-  * ``load_dgraphfin_dataset`` reads ``dgraphfin.npz`` (``x``, ``y``,
-    ``edge_index``) — reference ``src/utils.py:15-61``.
+  * ``load_dgraphfin`` reads ``dgraphfin.npz`` (``x``, ``y``,
+    ``edge_index``) — reference ``src/utils.py:15-61``;
+    ``load_dgraphfin_dataset`` wraps it as a :class:`GADDataset`.
   * When a file is absent, ``load_dataset`` falls back to a shape-matched
     synthetic graph and says so with a ``[synthetic fallback]`` line.
 """
@@ -73,11 +74,13 @@ def load_mat(dataset: str, *, data_dir: str = None, seed: int = 0) -> GADDataset
     )
 
 
-def load_dgraphfin_dataset(*, data_dir: str = None,
-                           seed: int = 0) -> GADDataset:
-    """DGraph-Fin as a :class:`GADDataset`. ``adj`` holds A without
-    self-loops (every consumer adds them itself), so the reference
-    loader's self-loops (``src/utils.py:52-58``) are stripped here."""
+def load_dgraphfin(*, data_dir: str = None
+                   ) -> tuple[sp.csr_matrix, np.ndarray, np.ndarray]:
+    """Load DGraph-Fin: (adjacency CSR with self-loops, features, labels).
+
+    Reference ``src/utils.py:15-61``: features from ``x``; labels =
+    (y == 1); the edge list is symmetrized and self-loops are added.
+    """
     data_dir = data_dir or DATA_DIR
     data = np.load(os.path.join(data_dir, "dgraphfin.npz"))
     feats = np.asarray(data["x"], dtype=np.float32)
@@ -92,6 +95,16 @@ def load_dgraphfin_dataset(*, data_dir: str = None,
     adj = adj.maximum(adj.T)
     adj = adj + sp.eye(n, dtype=np.float32, format="csr")
     adj.data[:] = 1.0
+    return adj, feats, labels
+
+
+def load_dgraphfin_dataset(*, data_dir: str = None,
+                           seed: int = 0) -> GADDataset:
+    """DGraph-Fin as a :class:`GADDataset`. ``adj`` holds A without
+    self-loops (every consumer adds them itself: the full-batch path via
+    ``normalize_adj_reference``, the minibatch path via ``adj + I``), so
+    :func:`load_dgraphfin`'s self-loops are stripped here."""
+    adj, feats, labels = load_dgraphfin(data_dir=data_dir)
     adj = adj.tolil()
     adj.setdiag(0)
     adj = adj.tocsr()

@@ -7,6 +7,9 @@ Reference ``utils.py:89-141``:
     the train split;
   * shuffle labeled normals; the outlier-seed set ("abnormal_label_idx") is
     the first ``seed_frac`` of them (0.05 for Amazon, 0.15 otherwise).
+
+The minibatch (DGraph) path's split, ``minibatch_split`` and its
+per-dataset presets, copies ``splits.py:143-262``.
 """
 
 from __future__ import annotations
@@ -61,3 +64,115 @@ def reference_split(
         normal_label_idx=normal_label_idx,
         abnormal_label_idx=abnormal_label_idx,
     )
+
+
+def minibatch_split(
+    ano_labels: np.ndarray,
+    *,
+    seed: int = 72,
+    labeled_rate: float = 0.3,
+    pseudo_anomaly_frac: float = 0.05,
+    contamination_frac: float = 0.0,
+    test_ratio: float = 0.6,
+    seeds_in_train: bool = False,
+    index_start: int = 0,
+):
+    """DGraph-style split (reference ``src/model_handler.py:150-178``).
+
+      * 30% of normal nodes become labeled;
+      * the first ``pseudo_anomaly_frac`` of those are *relabeled* as
+        pseudo-anomalies (seeds);
+      * optionally ``contamination_frac`` of real anomalies are moved into
+        the train set (and removed from eval);
+      * the rest is split valid/test stratified by label.
+
+    ``seeds_in_train``: some reference branches keep the relabeled seeds
+    inside ``idx_train``, others take the set difference.
+    ``index_start``: amazon's nodes 0..3304 are unlabeled and excluded
+    from every split (``src/model_handler.py:62``).
+
+    Returns (idx_train, idx_valid, idx_test, labels_mutated, idx_anomaly).
+    """
+    rng = np.random.default_rng(seed)
+    labels = np.asarray(ano_labels).copy()
+    n = labels.shape[0]
+    index = np.arange(index_start, n)
+    idx_normal = index[labels[index] == 0]
+    idx_real_abnormal = index[labels[index] == 1]
+
+    rng.shuffle(idx_normal)
+    idx_labeled = idx_normal[: int(len(idx_normal) * labeled_rate)]
+    idx_anomaly = idx_labeled[: int(len(idx_labeled) * pseudo_anomaly_frac)]
+    labels[idx_anomaly] = 1
+
+    if seeds_in_train:
+        idx_train = idx_labeled.copy()
+    else:
+        idx_train = np.setdiff1d(idx_labeled, idx_anomaly)
+    contaminate = idx_real_abnormal[
+        : int(len(idx_real_abnormal) * contamination_frac)]
+    idx_train = np.concatenate([idx_train, contaminate])
+
+    idx_rest = np.setdiff1d(index, idx_labeled)
+    idx_rest = np.setdiff1d(idx_rest, contaminate)
+    # stratified valid/test split
+    rest_labels = labels[idx_rest]
+    idx_valid_parts, idx_test_parts = [], []
+    for cls in np.unique(rest_labels):
+        cls_idx = idx_rest[rest_labels == cls]
+        rng.shuffle(cls_idx)
+        n_test = int(round(len(cls_idx) * test_ratio))
+        idx_test_parts.append(cls_idx[:n_test])
+        idx_valid_parts.append(cls_idx[n_test:])
+    idx_valid = np.concatenate(idx_valid_parts)
+    idx_test = np.concatenate(idx_test_parts)
+    rng.shuffle(idx_valid)
+    rng.shuffle(idx_test)
+
+    return idx_train, idx_valid, idx_test, labels, idx_anomaly
+
+
+# Per-dataset minibatch split presets, the reference's branches in
+# ``src/model_handler.py:31-214``, one row each. All share labeled_rate
+# 0.3; they differ in the seed fraction, whether seeds stay inside
+# idx_train, contamination, and amazon's unlabeled-node offset.
+MINIBATCH_SPLIT_PRESETS: dict = {
+    "yelp": dict(pseudo_anomaly_frac=0.05, seeds_in_train=True),
+    "amazon": dict(pseudo_anomaly_frac=0.05, seeds_in_train=False,
+                   index_start=3305),
+    "tsocial": dict(pseudo_anomaly_frac=0.1, seeds_in_train=True),
+    "tfinance": dict(pseudo_anomaly_frac=0.1, seeds_in_train=True),
+    "reddit": dict(pseudo_anomaly_frac=0.05, seeds_in_train=True),
+    # 20% of real anomalies contaminate the train set
+    "dgraphfin": dict(pseudo_anomaly_frac=0.05, seeds_in_train=False,
+                      contamination_frac=0.2),
+    "elliptic": dict(pseudo_anomaly_frac=0.05, seeds_in_train=False),
+    "amazon_no_isolate": dict(pseudo_anomaly_frac=0.3,
+                              seeds_in_train=True),
+}
+
+_SPLIT_NAME_ALIASES = {
+    "t_finance": "tfinance",
+    "tf_finace": "tfinance",      # the reference's typo'd key
+    "tsocial_gad": "tsocial",
+}
+
+
+def minibatch_split_preset_name(dataset_name: str) -> str | None:
+    """Map a dataset name (``synthetic_<name>`` fallbacks included) to its
+    split preset, or None for the generic default."""
+    name = dataset_name.lower()
+    if name.startswith("synthetic_"):
+        name = name[len("synthetic_"):]
+    name = _SPLIT_NAME_ALIASES.get(name, name)
+    return name if name in MINIBATCH_SPLIT_PRESETS else None
+
+
+def minibatch_split_for(dataset_name: str, ano_labels: np.ndarray, *,
+                        seed: int = 72, test_ratio: float = 0.6):
+    """``minibatch_split`` with the dataset's reference preset applied
+    (the generic defaults when the dataset has no reference branch)."""
+    preset = minibatch_split_preset_name(dataset_name)
+    kwargs = MINIBATCH_SPLIT_PRESETS.get(preset, {}) if preset else {}
+    return minibatch_split(ano_labels, seed=seed, test_ratio=test_ratio,
+                           **kwargs)

@@ -3,10 +3,12 @@
 
 The tree is a nested dict of numpy arrays, the ``params`` collection of
 ``ggad_tpu.models.ggad.GGAD.init`` (names as in
-``tests/test_ggad_fullbatch.py:27-47``), with or without the outer
+``tests/test_ggad_fullbatch.py:27-47``) or of
+``ggad_tpu.models.sage.MiniBatchGGAD.init``, with or without the outer
 ``{"params": ...}``. Flax's dense ``kernel`` is ``[in, out]``; the port's
-``weight`` is ``[out, in]``. Every other leaf (``bias``, ``alpha``) keeps
-its name and shape.
+``weight`` is ``[out, in]``. Every other leaf (``bias``, ``alpha``, and
+``MiniBatchGGAD``'s ``w_enc``/``w_score``, which the port keeps
+``[in, out]``) keeps its name and shape.
 """
 
 from __future__ import annotations
@@ -52,3 +54,12 @@ def params_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(p, {})
         node[key] = arr
     return {"params": tree}
+
+
+def as_state_dict(params: Mapping, device) -> dict[str, torch.Tensor]:
+    """``params`` (a flax tree of arrays or a ``state_dict``) as float32
+    tensors on ``device``."""
+    if any(isinstance(v, Mapping) for v in params.values()):
+        params = params_from_flax(params)
+    return {k: torch.as_tensor(v, dtype=torch.float32).to(device)
+            for k, v in params.items()}

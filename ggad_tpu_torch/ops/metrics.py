@@ -1,6 +1,8 @@
 """Evaluation metrics: AUROC and average precision, host-side numpy copies
-of ``ggad_tpu/ops/metrics.py:21-69`` (sklearn parity), and
-:func:`roc_auc_torch`, the on-device AUROC of ``roc_auc_jnp``."""
+of ``ggad_tpu/ops/metrics.py:21-69`` (sklearn parity); the minibatch
+path's thresholded metrics (F1 trio, confusion, G-mean), copies of
+``metrics.py:71-111``; and :func:`roc_auc_torch`, the on-device AUROC of
+``roc_auc_jnp``."""
 
 from __future__ import annotations
 
@@ -56,6 +58,50 @@ def average_precision(labels: np.ndarray, scores: np.ndarray) -> float:
     recall = tp / n_pos
     recall_prev = np.concatenate([[0.0], recall[:-1]])
     return float(np.sum((recall - recall_prev) * precision))
+
+
+def prob_to_pred(probs: np.ndarray, thres: float) -> np.ndarray:
+    """Threshold probabilities (reference ``src/utils.py:250-260``)."""
+    return (np.asarray(probs) >= thres).astype(np.int64)
+
+
+def f1_scores(labels: np.ndarray, preds: np.ndarray
+              ) -> tuple[float, float, float]:
+    """(f1_macro, f1_binary_pos, f1_binary_neg), the reference's trio
+    (``src/utils.py:238-247``)."""
+    labels = np.asarray(labels).ravel()
+    preds = np.asarray(preds).ravel()
+
+    def f1_for(cls):
+        tp = np.sum((preds == cls) & (labels == cls))
+        fp = np.sum((preds == cls) & (labels != cls))
+        fn = np.sum((preds != cls) & (labels == cls))
+        denom = 2 * tp + fp + fn
+        return 2 * tp / denom if denom > 0 else 0.0
+
+    f1_pos, f1_neg = f1_for(1), f1_for(0)
+    return (f1_pos + f1_neg) / 2.0, f1_pos, f1_neg
+
+
+def confusion(labels: np.ndarray, preds: np.ndarray) -> np.ndarray:
+    """2x2 confusion matrix [[tn, fp], [fn, tp]] (sklearn layout)."""
+    labels = np.asarray(labels).ravel()
+    preds = np.asarray(preds).ravel()
+    tn = np.sum((labels == 0) & (preds == 0))
+    fp = np.sum((labels == 0) & (preds == 1))
+    fn = np.sum((labels == 1) & (preds == 0))
+    tp = np.sum((labels == 1) & (preds == 1))
+    return np.array([[tn, fp], [fn, tp]])
+
+
+def gmean_from_confusion(conf: np.ndarray) -> float:
+    """G-mean = sqrt(sensitivity · specificity)
+    (reference ``src/utils.py:324-326``)."""
+    tn, fp = conf[0]
+    fn, tp = conf[1]
+    sens = tp / (tp + fn) if (tp + fn) > 0 else 0.0
+    spec = tn / (tn + fp) if (tn + fp) > 0 else 0.0
+    return float(np.sqrt(sens * spec))
 
 
 def roc_auc_torch(labels: torch.Tensor, scores: torch.Tensor,

@@ -6,6 +6,9 @@ The reference's pipeline (``run.py:96-101``):
     adj      = D^{-1/2} A D^{-1/2}      (no self-loops during norm!)
     adj      = adj + I                   (identity added AFTER normalizing)
     raw_adj  = A + I
+
+and two feature row-normalizations: ``row_normalize_features`` for the
+full-batch path and ``row_normalize_smoothed`` for the minibatch path.
 """
 
 from __future__ import annotations
@@ -46,4 +49,16 @@ def row_normalize_features(x: np.ndarray) -> np.ndarray:
     x = np.asarray(x, dtype=np.float32)
     rowsum = x.sum(axis=1)
     inv = np.where(rowsum != 0, 1.0 / rowsum, 0.0)
+    return x * inv[:, None]
+
+
+def row_normalize_smoothed(x: np.ndarray) -> np.ndarray:
+    """The minibatch path's feature normalization (reference
+    ``src/utils.py:74-84``): x / (rowsum + 0.01), the +0.01 smoothing
+    distinct from :func:`row_normalize_features`. The reference's
+    ModelHandler applies it to every dataset (``src/model_handler.py:225``).
+    """
+    x = np.asarray(x, dtype=np.float32)
+    rowsum = x.sum(axis=1) + 0.01
+    inv = np.where(np.isfinite(1.0 / rowsum), 1.0 / rowsum, 0.0)
     return x * inv[:, None]

@@ -1,1 +1,2 @@
-"""The full-batch trainer, its losses and checkpoints."""
+"""The trainers (full-batch and minibatch), their losses, checkpoints
+and configs."""

@@ -31,7 +31,7 @@ from ggad_tpu_torch.datasets.core import GADDataset
 from ggad_tpu_torch.datasets.registry import preset_for
 from ggad_tpu_torch.device import DeviceLike, resolve_device
 from ggad_tpu_torch.graph import Graph, from_scipy, rows_subgraph
-from ggad_tpu_torch.interop import params_from_flax
+from ggad_tpu_torch.interop import as_state_dict
 from ggad_tpu_torch.models.ggad import GGAD
 from ggad_tpu_torch.ops.bcsr_spmm import TILE, BCSRGraph, as_bcsr_graph
 from ggad_tpu_torch.ops.ell_spmm import (
@@ -258,13 +258,9 @@ class FullBatchTrainer:
     def initial_state(self) -> dict[str, torch.Tensor]:
         """``initial_params`` (a flax tree of arrays or a ``state_dict``)
         on the device, else the port's init seeded with ``seed``."""
-        p = self.initial_params
-        if p is None:
+        if self.initial_params is None:
             return self.init(torch.Generator().manual_seed(self.seed))
-        if any(isinstance(v, Mapping) for v in p.values()):
-            p = params_from_flax(p)
-        return {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
-                for k, v in p.items()}
+        return as_state_dict(self.initial_params, self.device)
 
     def params(self) -> dict[str, torch.Tensor]:
         """A copy of the model's current ``state_dict``."""
