@@ -42,7 +42,20 @@ Phases (any failure raises and the script exits non-zero):
      4,096 scores on the card against the CPU from the same weights,
      batches and draws (ids equal, losses and scores within 1e-4). Plain
      PyTorch: K1 and K2 must launch 0 times in the phase;
-  7. hold each kernel against its plain PyTorch version on the card, in f32
+  7. the full-batch baseline zoo on the photo-shaped graph at n_h 300
+     (GAAN at its fixed noise 16 and hid 64): DOMINANT, AnomalyDAE,
+     OCGNN, GAAN and AEGIS in both modes through their runners
+     (``train.baselines.run_*``) for 5 epochs (AEGIS after 3 pretrain
+     epochs), K1's counter set to 0 before each and read after (OCGNN 4 a
+     step and 2 an evaluation, AEGIS 10 a pretrain and 12 an adversarial
+     step, the others 0; K2 0), finite losses, final AUROC/AP; each
+     model's step median (CUDA events), peak and held device memory; 2
+     steps (AEGIS: a pretrain and an adversarial one) on the card against
+     the CPU (its COO route) from the same weights and noise, losses and
+     scores within 1e-4; then OCGNN on the elliptic-shaped graph through
+     ``run_baseline`` under ``auto`` for 3 epochs, which must take the ELL
+     route with K1 = K2 = 0;
+  8. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16: K1 at the photo serving shapes, on the transposed tile set
      and on the rectangular sets of the labeled-column subset, at the tile
      heights 128, 256, 512 and 1024 (the sweep of
@@ -51,16 +64,17 @@ Phases (any failure raises and the script exits non-zero):
      subset shapes of the bf16 trainer and at a small ragged square case
      with an empty tile row. Time each kernel (device time from
      ``torch.profiler``), its plain version and one PyTorch library call
-     computing the same function, and compute each kernel's bound from this
+     computing the same function (K1 also at d 745, AEGIS
+     ``gcn_dec2``'s width), and compute each kernel's bound from this
      run's non-zeros (with the bound of the CSR walk the kernels implement
      beside it, and the bytes the walk gathers through L2);
-  8. profile a request and a train step of each precision, photo and
-     ELL, and a minibatch step: the device time against the wall time (the
-     card's busy share), the device operations a call and the largest
-     kernels; the photo step's kernels alone and the ELL step's table
-     products alone. The profiler runs only after the timed phases 3 to 6,
+  9. profile a request and a train step of each precision, photo and
+     ELL, a minibatch step and a step of each baseline: the device time
+     against the wall time (the card's busy share), the device operations
+     a call and the largest kernels; the photo step's kernels alone and the ELL step's table
+     products alone. The profiler runs only after the timed phases 3 to 7,
      since it adds to the host's launch time;
-  9. print the kernels' JSON line, the card line and, last,
+ 10. print the kernels' JSON line, the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``ggad_tpu``.
@@ -68,6 +82,7 @@ It imports nothing of JAX and nothing of ``ggad_tpu``.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -96,6 +111,20 @@ K1_REPLACES = "ggad_tpu/ops/pallas_spmm.py:96"
 STUDY_REPLACES = "scripts/tile_rows_study.py:52"   # K1's body, swept
 SWEEP_TILE_ROWS = (128, 256, 512, 1024)    # tile_rows_study.py:105 + 1024
 K2_REPLACES = "ggad_tpu/ops/pallas_sddmm.py:41"
+ZOO = [("dominant", None), ("anomalydae", None), ("ocgnn", None),
+       ("gaan", None), ("aegis", False), ("aegis", True)]
+ZOO_EPOCHS = 5                                # adversarial epochs for AEGIS
+ZOO_EVAL_EVERY = 10                           # the CLI's --eval_every
+ZOO_PRETRAIN = 3                              # AEGIS pretrain epochs
+ZOO_STEPS = 10                                # timed steps a model
+ZOO_CPU_STEPS = 2                             # zoo steps vs the CPU
+# K1 launches from the autograd graph: OCGNN's two GCN layers forward and
+# backward, its evaluation forward; AEGIS's six GCN forwards, backward
+# through the real path only in pretraining, through all six when loss_g
+# reaches the generated path. DOMINANT, AnomalyDAE and GAAN launch none.
+ZOO_K1 = {"ocgnn": {"step": 4, "eval": 2},
+          "aegis": {"pretrain": 10, "step": 12}}
+D_DEC2 = 745                                  # AEGIS gcn_dec2 width (photo F)
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
 
@@ -433,6 +462,17 @@ def kernel_phase(cuda, k1: dict, k2: dict) -> None:
               f"{fwd.n_rows}x{fwd.n_cols} d={N_H}")
         k1[dtype].update(check_k1(fwd, h, dtype, timed=True))
         print("  " + json.dumps(k1[dtype]))
+        h_dec = torch.randn(ds.n_nodes, D_DEC2, device=cuda, generator=gen)
+        print(f"K1 photo {dtype} at d={D_DEC2} (AEGIS gcn_dec2's width; "
+              f"its operand copied to a whole-vector stride)")
+        dec = check_k1(fwd, h_dec, dtype, timed=True)
+        k1[dtype]["at_d745"] = {key: dec[key] for key in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")}
+        print("  " + json.dumps(k1[dtype]["at_d745"]))
+        k1[dtype]["max_abs_err"] = max(k1[dtype]["max_abs_err"],
+                                       dec["max_abs_err"])
+        del h_dec
         errs = [check_k1(pair.bwd, h, dtype, timed=False)["max_abs_err"]]
         sub = tile_affinity_subset(raw, labeled(ds), dtype=dtype)
         u = sub.n_uniq
@@ -1153,6 +1193,220 @@ def minibatch_card_vs_cpu(tr, inputs: dict, shape: dict, cuda) -> None:
           f"(tol {SCORE_TOL})")
 
 
+
+def zoo_run(name: str, ds, faithful: bool, device, **kw):
+    """A full-batch baseline's run object (``train.baselines``) at the
+    zoo's full width: n_h ``N_H``; GAAN at its fixed noise 16 and hid 64."""
+    from ggad_tpu_torch.train import baselines as tb
+
+    if name in tb.RECONSTRUCTION:
+        return tb.ReconstructionRun(name, ds, embedding_dim=N_H,
+                                    device=device, **kw)
+    if name == "ocgnn":
+        return tb.OCGNNRun(ds, embedding_dim=N_H, device=device, **kw)
+    if name == "aegis":
+        return tb.AEGISRun(ds, embedding_dim=N_H, faithful=faithful,
+                           device=device, **kw)
+    return tb.GAANRun(ds, device=device, **kw)
+
+
+def zoo_label(name: str, faithful) -> str:
+    return name + {None: "", False: " (intended)",
+                   True: " (faithful)"}[faithful]
+
+
+def zoo_main_path(name: str, ds, faithful, cuda):
+    """The runner a user calls (``train.baselines.run_*``, which the CLI's
+    ``--model`` reaches) for ``ZOO_EPOCHS`` epochs at n_h 300 and the
+    CLI's evaluation cadence; AEGIS after ``ZOO_PRETRAIN`` pretrain
+    epochs."""
+    from ggad_tpu_torch.train import baselines as tb
+
+    kw = dict(num_epoch=ZOO_EPOCHS, eval_every=ZOO_EVAL_EVERY, device=cuda)
+    if name in tb.RECONSTRUCTION:
+        return tb.run_reconstruction(name, ds, embedding_dim=N_H, **kw)
+    if name == "ocgnn":
+        return tb.run_ocgnn(ds, embedding_dim=N_H, **kw)
+    if name == "aegis":
+        return tb.run_aegis(ds, recon_num_epoch=ZOO_PRETRAIN,
+                            embedding_dim=N_H, faithful=faithful, **kw)
+    return tb.run_gaan(ds, **kw)
+
+
+def zoo_card_vs_cpu(name: str, ds, faithful: bool, cuda):
+    """``ZOO_CPU_STEPS`` steps (AEGIS: a pretrain and an adversarial step)
+    on the card (``auto``, BCSR on the photo shape) and on the CPU (the
+    COO route, the same function, to keep the CPU leg short) from the same
+    weights (the card run's seeded init, copied) and noise: losses within
+    ``LOSS_TOL``, scores within ``SCORE_TOL``. Returns the card run, its
+    noise then drawn on the card, and the largest differences."""
+    import numpy as np
+
+    from ggad_tpu_torch.ops.bcsr_spmm import BCSRGraph
+
+    kw = {}
+    if name in ("aegis", "gaan"):
+        kw["noise_seq"] = [np.random.default_rng(i).standard_normal(
+            (ds.n_nodes, 16)).astype(np.float32)
+            for i in range(ZOO_CPU_STEPS)]
+    card = zoo_run(name, ds, faithful, cuda, **kw)
+    if not isinstance(card.adj, BCSRGraph):
+        raise RuntimeError(f"zoo {name}: the photo graph did not route to "
+                           f"BCSR ({type(card.adj).__name__})")
+    init = {k: v.cpu() for k, v in card.model.state_dict().items()}
+    cpu = zoo_run(name, ds, faithful, "cpu", spmm_impl="coo",
+                  initial_params=init, **kw)
+    calls = (["pretrain_step", "step"] if name == "aegis"
+             else ["step"] * ZOO_CPU_STEPS)
+    got = []
+    for run in (card, cpu):
+        got.append([(float(getattr(run, c)()),
+                     None if c == "pretrain_step" else run.scores().cpu())
+                    for c in calls])
+    loss_d = score_d = 0.0
+    for (la, sa), (lb, sb) in zip(*got):
+        if not abs(la - lb) <= LOSS_TOL * (1 + abs(lb)):
+            raise RuntimeError(f"zoo {name}: card losses {got[0]} vs CPU "
+                               f"{got[1]}")
+        loss_d = max(loss_d, abs(la - lb))
+        if sa is not None:
+            np.testing.assert_allclose(sa.numpy(), sb.numpy(),
+                                       rtol=SCORE_TOL, atol=SCORE_TOL)
+            score_d = max(score_d, float((sa - sb).abs().max()))
+    if "noise_seq" in kw:
+        card.next_noise = card.noise_source(None, 1, 16)
+    return card, loss_d, score_d
+
+
+def zoo_step_ms(run, call: str, k1_each: int,
+                base: int) -> tuple[float, float]:
+    """Median of ``ZOO_STEPS`` calls of ``run.<call>`` (CUDA events, after
+    one warm-up) and the peak device memory over them above ``base``
+    bytes (MB); K1 must launch ``k1_each`` times a call."""
+    import torch
+
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+
+    fn = getattr(run, call)
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bcsr_spmm.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(ZOO_STEPS + 1)]
+    ev[0].record()
+    for i in range(ZOO_STEPS):
+        fn()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    if bcsr_spmm.launches != ZOO_STEPS * k1_each:
+        raise RuntimeError(f"{call}: K1 launched {bcsr_spmm.launches} times "
+                           f"in {ZOO_STEPS} calls, expected {k1_each} each")
+    steps = [ev[i].elapsed_time(ev[i + 1]) for i in range(ZOO_STEPS)]
+    return (statistics.median(steps),
+            (torch.cuda.max_memory_allocated() - base) / 1e6)
+
+
+def zoo_phase(cuda, k1: dict, k2: dict, later: list) -> None:
+    """The full-batch baseline zoo on the photo-shaped graph at n_h 300:
+    each model's main path with K1's exact count, its step median and
+    memory, 2 steps against the CPU; then OCGNN on the elliptic-shaped
+    graph under ``auto`` (the ELL route, K1 = K2 = 0); appends each
+    model's profiled step to ``later``."""
+    import math
+
+    import torch
+
+    from ggad_tpu_torch.cli import build_parser
+    from ggad_tpu_torch.datasets.synthetic import photo_bench, synthetic_like
+    from ggad_tpu_torch.graph import from_scipy
+    from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+    from ggad_tpu_torch.ops.normalize import normalize_adj_reference
+    from ggad_tpu_torch.train import baselines as tb
+    from ggad_tpu_torch.train.full_batch import spmm_route
+
+    t_phase = time.perf_counter()
+    ds = photo_bench()
+    for name, faithful in ZOO:
+        label = zoo_label(name, faithful)
+        per = ZOO_K1.get(name, {})
+        bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+        res = zoo_main_path(name, ds, faithful, cuda)
+        torch.cuda.synchronize()
+        n1, n2 = bcsr_spmm.launches, bcsr_sddmm_colsum.launches
+        evals = sum(1 for e in range(ZOO_EPOCHS)
+                    if e % ZOO_EVAL_EVERY == 0 or e == ZOO_EPOCHS - 1)
+        want = (ZOO_EPOCHS * per.get("step", 0) + evals * per.get("eval", 0)
+                + (ZOO_PRETRAIN * per["pretrain"] if name == "aegis" else 0))
+        if (n1, n2) != (want, 0):
+            raise RuntimeError(f"zoo {label}: K1 {n1}, K2 {n2} launches; "
+                               f"expected K1 {want}, K2 0")
+        losses = [r["loss"] for r in res.history]
+        if (len(losses) != evals + (ZOO_PRETRAIN if name == "aegis" else 0)
+                or not all(map(math.isfinite, losses))
+                or not math.isfinite(res.auc)):
+            raise RuntimeError(f"zoo {label}: bad history {res.history}")
+        k1["float32"]["paths"][f"zoo {label}"] = n1
+        for rec in (k1["bfloat16"], *k2.values()):
+            rec["paths"][f"zoo {label}"] = 0
+
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        run, loss_d, score_d = zoo_card_vs_cpu(name, ds, faithful, cuda)
+        torch.cuda.synchronize()
+        held = (torch.cuda.memory_allocated() - base) / 1e6
+        times = {}
+        if name == "aegis":
+            times["pretrain step"] = zoo_step_ms(run, "pretrain_step",
+                                                 per["pretrain"], base)
+        times["step"] = zoo_step_ms(run, "step", per.get("step", 0), base)
+        print(f"zoo {label}: {ZOO_EPOCHS} epochs"
+              + (f" after {ZOO_PRETRAIN} pretrain" if name == "aegis"
+                 else "")
+              + f" in {res.wall_time_s:.3f} s, K1 launches {n1}, K2 0; "
+              f"losses {[round(x, 6) for x in losses]}; final AUROC "
+              f"{res.auc:.6f} AP {res.ap:.6f}")
+        print("  " + "; ".join(
+            f"{k} median {ms:.3f} ms (CUDA events, {ZOO_STEPS} after a "
+            f"warm-up), peak device memory {peak:.1f} MB"
+            for k, (ms, peak) in times.items())
+            + f" (above what the earlier phases hold); device memory held "
+            f"by the run after 2 steps {held:.1f} MB")
+        print("  card vs CPU (COO route on the CPU), "
+              + ("a pretrain and an adversarial step" if name == "aegis"
+                 else f"{ZOO_CPU_STEPS} steps")
+              + f" from the same weights and noise: losses max|d| "
+              f"{loss_d:.3g} (tol {LOSS_TOL}·(1 + |CPU|)), scores max|d| "
+              f"{score_d:.3g} (tol {SCORE_TOL}·(1 + |CPU|))")
+        later.append(partial(busy_line, f"zoo {label} step", run.step,
+                             times["step"][0], ZOO_STEPS))
+        del run
+
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    ell = synthetic_like("elliptic")
+    adj, _ = normalize_adj_reference(from_scipy(ell.adj, device=cuda))
+    route = spmm_route(adj, "auto")
+    del adj
+    args = build_parser().parse_args(
+        ["--model", "ocgnn", "--num_epoch", "3", "--embedding_dim", str(N_H),
+         "--device", str(cuda)])
+    t0 = time.perf_counter()
+    rec = tb.run_baseline("ocgnn", ell, args)
+    torch.cuda.synchronize()
+    if route != "ell" or bcsr_spmm.launches or bcsr_sddmm_colsum.launches:
+        raise RuntimeError(f"zoo ocgnn on the elliptic shape: route {route}, "
+                           f"K1 {bcsr_spmm.launches}, K2 "
+                           f"{bcsr_sddmm_colsum.launches}")
+    if not math.isfinite(rec["auc"]):
+        raise RuntimeError(f"zoo ocgnn (ELL): {rec}")
+    for paths in (*k1.values(), *k2.values()):
+        paths["paths"]["zoo ocgnn (ELL)"] = 0
+    print(f"zoo ocgnn on the elliptic-shaped graph under auto: route {route}, "
+          f"3 epochs {time.perf_counter() - t0:.3f} s, K1 0, K2 0; "
+          f"{json.dumps(rec)}")
+    print(f"zoo phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_record(name, source, replaces, rec) -> dict:
     paths = rec.get("paths", {})
     out = {"name": name, "route": "cuda", "source": source,
@@ -1164,6 +1418,8 @@ def kernel_record(name, source, replaces, rec) -> dict:
            "design_bound_ms": rec["design_bound_ms"],
            "gather_mb": rec["gather_mb"], "gather_tb_s": rec["gather_tb_s"],
            "library_ms": rec["library_ms"]}
+    if "at_d745" in rec:
+        out["at_d745"] = rec["at_d745"]
     if "tile_rows_sweep" in rec:
         out["also_replaces"] = [STUDY_REPLACES]
         out["tile_rows_sweep"] = {r["tile_rows"]: r["spmm_ms"]
@@ -1200,6 +1456,7 @@ def main() -> int:
     training_phase(cuda, k1, k2, later)
     sparse_phase(cuda, k1, k2, later)
     minibatch_phase(cuda, k1, k2, later)
+    zoo_phase(cuda, k1, k2, later)
     kernel_phase(cuda, k1, k2)
     for line in later:
         print(line())

@@ -13,8 +13,11 @@ tiles the affinity through the hand-written SDDMM kernel),
 ``train.full_batch.FullBatchTrainer.train``, checkpoints,
 ``serve.score_dataset``; single-device minibatch GGAD (the DGraph path:
 ``sampler``, ``models.sage``, ``train.minibatch.MiniBatchTrainer``,
-``train.config``); and the CLI (training, ``--score_only``,
-``--model ggad-minibatch``, ``--config``).
+``train.config``); the full-batch baseline zoo (``models.dominant``,
+``anomaly_dae``, ``ocgnn``, ``aegis``, ``gaan``, run by
+``train.baselines``; OCGNN's and AEGIS's GCN layers through the BCSR
+kernel on a tile-dense graph); and the CLI (training, ``--score_only``,
+``--model ggad-minibatch``, the baselines' ``--model``, ``--config``).
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,9 @@ The routes of ``ggad_tpu.cli`` that the port has (``cli.py:97-235``):
 full-batch GGAD training (the default; per-dataset defaults from the
 preset registry, reference ``run.py:38-66``), ``--score_only``, which
 restores ``--checkpoint_dir`` and scores the dataset, minibatch GGAD
-(``--model ggad-minibatch``, the DGraph path) and ``--config``, a YAML
+(``--model ggad-minibatch``, the DGraph path), the full-batch baseline
+zoo (``--model dominant|anomalydae|ocgnn|aegis|gaan``, with
+``--aegis_faithful``) and ``--config``, a YAML
 config whose list-valued keys expand to a grid (``--multi_run`` runs all
 of it and aggregates). All run on the card unless ``--device cpu`` is
 given. ``--spmm_impl`` picks the full-batch sparse route (``auto``: BCSR
@@ -27,7 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="photo|reddit|Amazon|t_finance|elliptic|dgraphfin|"
                         "synthetic|synthetic_<name>")
     p.add_argument("--model", type=str, default="ggad",
-                   choices=["ggad", "ggad-minibatch"])
+                   choices=["ggad", "ggad-minibatch", "dominant",
+                            "anomalydae", "ocgnn", "aegis", "gaan"])
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
@@ -66,6 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restore --checkpoint_dir and score the dataset")
     p.add_argument("--score_out", type=str, default=None,
                    help="write per-node scores to this .npz")
+    p.add_argument("--aegis_faithful", action="store_true",
+                   help="reproduce the reference AEGIS script's effective "
+                        "behavior, bugs included (model_AEGIS.py:240)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' runs on the "
                         "host)")
@@ -98,6 +104,11 @@ def main(argv=None) -> int:
         from ggad_tpu_torch.train.baselines import run_minibatch_model
 
         print(json.dumps(run_minibatch_model(args.model, ds, args)))
+        return 0
+    if args.model != "ggad":
+        from ggad_tpu_torch.train.baselines import run_baseline
+
+        print(json.dumps(run_baseline(args.model, ds, args)))
         return 0
     return train(args, ds)
 

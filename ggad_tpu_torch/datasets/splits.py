@@ -8,8 +8,10 @@ Reference ``utils.py:89-141``:
   * shuffle labeled normals; the outlier-seed set ("abnormal_label_idx") is
     the first ``seed_frac`` of them (0.05 for Amazon, 0.15 otherwise).
 
-The minibatch (DGraph) path's split, ``minibatch_split`` and its
-per-dataset presets, copies ``splits.py:143-262``.
+``reference_split``'s contamination options and ``camouflage_features``
+copy ``splits.py:40-97``; the minibatch (DGraph) path's split,
+``minibatch_split`` and its per-dataset presets, copies
+``splits.py:143-262``.
 """
 
 from __future__ import annotations
@@ -36,10 +38,16 @@ def reference_split(
     val_rate: float = 0.1,
     labeled_normal_rate: float = 0.5,
     seed_frac: float = 0.15,
+    contamination_add_rate: float = 0.0,
+    contamination_remove_rate: float = 0.0,
 ) -> SplitResult:
-    """Reproduce the reference split semantics with a seeded RNG. The
-    JAX package's contamination options (the reference's commented
-    robustness experiments) are not carried: no loader uses them."""
+    """Reproduce the reference split semantics with a seeded RNG.
+
+    ``contamination_add_rate``: fraction of real anomalies injected into
+    the labeled-normal set (and, with ``contamination_remove_rate``,
+    removed from the test split) — the reference's commented robustness
+    experiments (``utils.py:111-127``) as options.
+    """
     rng = np.random.default_rng(seed)
     n = int(ano_labels.shape[0])
     all_idx = rng.permutation(n)
@@ -53,6 +61,16 @@ def reference_split(
     n_labeled = int(len(normals_in_train) * labeled_normal_rate)
     normal_label_idx = normals_in_train[:n_labeled].copy()
 
+    if contamination_add_rate > 0:
+        real_abnormal = all_idx[ano_labels[all_idx] == 1].copy()
+        rng.shuffle(real_abnormal)
+        add = real_abnormal[: int(contamination_add_rate
+                                  * len(real_abnormal))]
+        remove_rate = contamination_remove_rate or contamination_add_rate
+        remove = real_abnormal[: int(remove_rate * len(real_abnormal))]
+        normal_label_idx = np.concatenate([normal_label_idx, add])
+        idx_test = np.setdiff1d(idx_test, remove)
+
     rng.shuffle(normal_label_idx)
     n_seed = int(len(normal_label_idx) * seed_frac)
     abnormal_label_idx = normal_label_idx[:n_seed].copy()
@@ -64,6 +82,20 @@ def reference_split(
         normal_label_idx=normal_label_idx,
         abnormal_label_idx=abnormal_label_idx,
     )
+
+
+def camouflage_features(features: np.ndarray, ano_labels: np.ndarray,
+                        normal_label_idx: np.ndarray,
+                        replace_rate: float = 0.05) -> np.ndarray:
+    """Camouflage robustness variant (reference ``utils.py:129-133``):
+    overwrite the first ``replace_rate`` fraction of feature columns of
+    every real anomaly with the labeled-normal mean."""
+    feats = np.array(features, copy=True)
+    normal_mean = feats[normal_label_idx].mean(axis=0)
+    k = int(replace_rate * feats.shape[1])
+    anom = np.flatnonzero(ano_labels == 1)
+    feats[np.ix_(anom, np.arange(k))] = normal_mean[:k]
+    return feats
 
 
 def minibatch_split(

@@ -3,10 +3,13 @@
 
 The tree is a nested dict of numpy arrays, the ``params`` collection of
 ``ggad_tpu.models.ggad.GGAD.init`` (names as in
-``tests/test_ggad_fullbatch.py:27-47``) or of
-``ggad_tpu.models.sage.MiniBatchGGAD.init``, with or without the outer
-``{"params": ...}``. Flax's dense ``kernel`` is ``[in, out]``; the port's
-``weight`` is ``[out, in]``. Every other leaf (``bias``, ``alpha``, and
+``tests/test_ggad_fullbatch.py:27-47``), of
+``ggad_tpu.models.sage.MiniBatchGGAD.init`` or of a baseline of the zoo
+(``Dominant``, ``AnomalyDAE``, ``OCGNNEncoder``, ``AEGIS``, ``GAAN``),
+with or without the outer ``{"params": ...}``. Flax's ``kernel`` (a dense
+layer's, a GAT's, a bilinear critic's) is ``[in, out]``; the port's
+``weight`` is ``[out, in]``. Every other leaf (``bias``, ``alpha``, a
+GAT's ``att_src``/``att_dst``, a PyG MLP's ``bn_scale``/``bn_bias``, and
 ``MiniBatchGGAD``'s ``w_enc``/``w_score``, which the port keeps
 ``[in, out]``) keeps its name and shape.
 """

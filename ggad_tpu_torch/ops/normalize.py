@@ -7,8 +7,10 @@ The reference's pipeline (``run.py:96-101``):
     adj      = adj + I                   (identity added AFTER normalizing)
     raw_adj  = A + I
 
-and two feature row-normalizations: ``row_normalize_features`` for the
-full-batch path and ``row_normalize_smoothed`` for the minibatch path.
+two feature row-normalizations: ``row_normalize_features`` for the
+full-batch path and ``row_normalize_smoothed`` for the minibatch path;
+and ``gcn_norm_graph``, PyG's renormalisation of the binarised graph for
+the DOMINANT baseline.
 """
 
 from __future__ import annotations
@@ -39,6 +41,21 @@ def normalize_adj_reference(g: Graph) -> tuple[Graph, Graph]:
       raw_adj = A + I
     """
     return add_self_loops(sym_normalize(g)), add_self_loops(g)
+
+
+def gcn_norm_graph(g: Graph) -> Graph:
+    """PyG ``gcn_norm`` semantics (torch_geometric 2.1.0,
+    ``normalize.py:64-79``): unit weights over the binarised edges,
+    symmetric D^-1/2 B D^-1/2 with in-degrees. The reference's PyG
+    baselines (DOMINANT's ``GCN`` stack, ``model_domaint.py:90,168``) hand
+    GCNConv the normalised ``adj``'s edges, whose weights it discards. ``g``
+    must carry exactly one self-loop per node (the reference's +I graph);
+    padding edges (val == 0) stay 0."""
+    valid = (g.val != 0).to(g.val.dtype)
+    deg = torch.zeros(g.n_nodes, dtype=valid.dtype,
+                      device=valid.device).index_add_(0, g.col, valid)
+    dinv = torch.where(deg > 0, torch.rsqrt(deg), torch.zeros_like(deg))
+    return g.with_val(valid * dinv[g.row] * dinv[g.col])
 
 
 def row_normalize_features(x: np.ndarray) -> np.ndarray:

@@ -434,3 +434,76 @@ def test_minibatch_steps_and_scores_on_the_card_match_the_cpu(cuda):
     for a, b in zip(card_losses, cpu_losses):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(card_scores, cpu_scores, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-5)])
+@pytest.mark.parametrize("d", [745, 7])
+def test_k1_at_widths_off_the_vector(cuda, dtype, tol, d):
+    """K1 at AEGIS's ``gcn_dec2`` width (the photo shape's 745 features)
+    and at a small odd width: the operand is copied to a whole-vector
+    stride and the kernel stores its tail column by column."""
+    g = random_graph(1200, 20, d, cuda)
+    pair = pb.as_bcsr_graph(g, dtype=dtype, tile_rows=256).tiles
+    h = randn(1200, d, device=cuda, seed=d)
+    before = pb.bcsr_spmm.launches
+    outs = [pb.bcsr_matmul(pair.fwd, h), pb.bcsr_matmul(pair.bwd, h)]
+    torch.cuda.synchronize()
+    assert pb.bcsr_spmm.launches == before + 2
+    for tiles, out in zip((pair.fwd, pair.bwd), outs):
+        torch.testing.assert_close(out, pb.bcsr_spmm_plain(tiles, h),
+                                   rtol=tol, atol=tol)
+
+
+def zoo_run(device, name, faithful, init=None):
+    """An OCGNN or AEGIS run on a small graph with 21 features (AEGIS's
+    decoder width is off the vector), on the BCSR route, with fixed
+    noise."""
+    from ggad_tpu_torch.datasets.synthetic import synthetic_gad
+    from ggad_tpu_torch.train import baselines as tb
+
+    ds = synthetic_gad(n_nodes=600, avg_degree=12, feat_dim=21,
+                       n_communities=4, anomaly_rate=0.1, seed=2)
+    kw = dict(embedding_dim=40, spmm_impl="bcsr", device=device,
+              initial_params=init)
+    if name == "ocgnn":
+        return tb.OCGNNRun(ds, **kw)
+    noise = [np.random.default_rng(i).standard_normal(
+        (600, 16)).astype(np.float32) for i in range(2)]
+    return tb.AEGISRun(ds, faithful=faithful, noise_seq=noise, **kw)
+
+
+def zoo_steps(run, name):
+    """OCGNN: two steps, then an evaluation; AEGIS: a pretrain step, then
+    an adversarial step and its scores. Each call's result and its K1
+    launches."""
+    calls = (["step", "step"] if name == "ocgnn"
+             else ["pretrain_step", "step"]) + ["scores"]
+    out = []
+    for call in calls:
+        before = pb.bcsr_spmm.launches
+        val = getattr(run, call)().cpu()
+        out.append((call, val, pb.bcsr_spmm.launches - before))
+    return out
+
+
+@pytest.mark.parametrize("name,faithful", [("ocgnn", False),
+                                           ("aegis", False),
+                                           ("aegis", True)])
+def test_zoo_steps_on_the_card_match_the_cpu(cuda, name, faithful):
+    """OCGNN and AEGIS steps from the same weights (the card run's seeded
+    init, copied to the CPU) and noise: losses and scores on the card
+    within 1e-4 of the CPU, with K1's exact launches (OCGNN 4 a step, 2 an
+    evaluation; AEGIS 10 a pretrain step, 12 an adversarial one, whose
+    scores come from the step)."""
+    want = {"step": 4 if name == "ocgnn" else 12, "pretrain_step": 10,
+            "scores": 2 if name == "ocgnn" else 0}
+    card_run = zoo_run(cuda, name, faithful)
+    init = {k: v.cpu().clone() for k, v in card_run.model.state_dict().items()}
+    card = zoo_steps(card_run, name)
+    torch.cuda.synchronize()
+    assert [n for _, _, n in card] == [want[c] for c, _, _ in card]
+    cpu = zoo_steps(zoo_run("cpu", name, faithful, init), name)
+    assert all(n == 0 for _, _, n in cpu)
+    for (_, a, _), (_, b, _) in zip(card, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
