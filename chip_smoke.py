@@ -55,7 +55,20 @@ Phases (any failure raises and the script exits non-zero):
      scores within 1e-4; then OCGNN on the elliptic-shaped graph through
      ``run_baseline`` under ``auto`` for 3 epochs, which must take the ELL
      route with K1 = K2 = 0;
-  8. hold each kernel against its plain PyTorch version on the card, in f32
+  8. TAM on the photo-shaped graph at n_h 300 (8 members, cutting 8,
+     n_tree 1, lr 1e-5, seed 0, TAM's split) through ``run_tam_baseline``
+     for the reference's 500 epochs under ``auto``, which must take the
+     block-diagonal route: K1's counter set to 0 before and read after (4
+     launches an epoch a member chunk, K2 0), the per-round and final
+     AUROC/AP; the same ensemble built again: the block-diagonal tile
+     pair's host build time and device memory, the epoch median (CUDA
+     events) and peak memory; the same cut values and weights through the
+     card's BCSR and ELL routes for 3 epochs (messages and scores within
+     1e-4·(1 + |ELL|)) and, for 2 members and 2 epochs, the card's BCSR
+     against the CPU's ELL (per-member losses, messages and scores within
+     1e-4·(1 + |CPU|)); then 3 epochs on the elliptic-shaped graph under
+     ``auto``, which must take the ELL route with K1 = K2 = 0;
+  9. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16: K1 at the photo serving shapes, on the transposed tile set
      and on the rectangular sets of the labeled-column subset, at the tile
      heights 128, 256, 512 and 1024 (the sweep of
@@ -67,14 +80,18 @@ Phases (any failure raises and the script exits non-zero):
      computing the same function (K1 also at d 745, AEGIS
      ``gcn_dec2``'s width), and compute each kernel's bound from this
      run's non-zeros (with the bound of the CSR walk the kernels implement
-     beside it, and the bytes the walk gathers through L2);
-  9. profile a request and a train step of each precision, photo and
+     beside it, and the bytes the walk gathers through L2); K1 f32 also on
+     TAM's block-diagonal tile pair, forward and transposed, at d 600 and
+     300 (gcn1's and gcn2's widths), timed against its bound, its plain
+     version and ``torch.sparse.mm``;
+ 10. profile a request and a train step of each precision, photo and
      ELL, a minibatch step and a step of each baseline: the device time
      against the wall time (the card's busy share), the device operations
      a call and the largest kernels; the photo step's kernels alone and the ELL step's table
-     products alone. The profiler runs only after the timed phases 3 to 7,
-     since it adds to the host's launch time;
- 10. print the kernels' JSON line, the card line and, last,
+     products alone; a TAM epoch and its parts (K1, the einsums, the ELL
+     affinities) alone. The profiler runs only after the timed phases 3
+     to 8, since it adds to the host's launch time;
+ 11. print the kernels' JSON line, the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``ggad_tpu``.
@@ -125,6 +142,14 @@ ZOO_CPU_STEPS = 2                             # zoo steps vs the CPU
 ZOO_K1 = {"ocgnn": {"step": 4, "eval": 2},
           "aegis": {"pretrain": 10, "step": 12}}
 D_DEC2 = 745                                  # AEGIS gcn_dec2 width (photo F)
+TAM_EPOCHS = 500                              # tam.py hardcodes 500
+TAM_CUTTING = 8
+TAM_LR = 1e-5
+TAM_K1 = 4              # K1 an epoch a chunk: gcn1, gcn2 forward + backward
+TAM_TIMED = 10                                # timed ensemble epochs
+TAM_ROUTE_EPOCHS = 3                          # card BCSR vs card ELL
+TAM_CPU_MEMBERS, TAM_CPU_EPOCHS = 2, 2        # card BCSR vs CPU ELL
+TAM_ELL_EPOCHS = 3                            # elliptic-shaped TAM
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
 
@@ -289,7 +314,7 @@ def check_k1(tiles, h, dtype: str, *, n_out=None, timed: bool) -> dict:
     rec["plain_ms"] = cuda_ms(lambda: pb.bcsr_spmm_plain(tiles, h),
                               iters=3, warmup=1)
     rec.update(k1_bound_ms(tiles, n, d, dtype))
-    rec["gather_tb_s"] = rec["gather_mb"] / rec["ms"] / 1e6
+    rec["gather_tb_s"] = rec["gather_mb"] / rec["ms"] / 1e3
     rec["library_ms"], lib_err = library_spmm_ms(tiles, h, dtype, out)
     print(f"  device us per call by kernel: {json.dumps(per)}")
     print(f"  library (torch.sparse.mm, CSR) vs kernel max|d| {lib_err:.3g}")
@@ -381,7 +406,7 @@ def check_k2(tiles, e_row, e_col, dtype: str, *, timed: bool) -> dict:
         lambda: pk2.bcsr_sddmm_colsum_plain(tiles, e_row, e_col), iters=3,
         warmup=1)
     rec.update(k2_bound_ms(tiles, e_row, e_col, dtype))
-    rec["gather_tb_s"] = rec["gather_mb"] / rec["ms"] / 1e6
+    rec["gather_tb_s"] = rec["gather_mb"] / rec["ms"] / 1e3
     print(f"  device us per call by kernel: {json.dumps(per)}")
     rec["library_ms"], lib = library_sddmm_ms(tiles, e_row, e_col, dtype,
                                               out)
@@ -1407,6 +1432,292 @@ def zoo_phase(cuda, k1: dict, k2: dict, later: list) -> None:
     print(f"zoo phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def tam_members(raw, ds, cuda):
+    """The photo run's members as ``run_tam`` makes them at seed 0: the
+    stacked seeded init, then the cut values from the generator's next
+    draws; and the features on the card."""
+    import torch
+
+    from ggad_tpu_torch.models import tam
+
+    gen = torch.Generator().manual_seed(0)
+    params = tam.init_members(ds.feat_dim, N_H, TAM_CUTTING, gen)
+    x = torch.as_tensor(ds.features, device=cuda)
+    vals = tam.cut_stack(raw, x, TAM_CUTTING, 1,
+                         [torch.rand(ds.n_nodes, generator=gen)
+                          for _ in range(TAM_CUTTING)])
+    return x, params, vals
+
+
+def within(got, ref, what: str) -> float:
+    """Raise unless |got − ref| ≤ 1e-4·(1 + |ref|) everywhere; the largest
+    difference."""
+    import numpy as np
+
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape or not np.all(
+            np.abs(got - ref) <= LOSS_TOL * (1 + np.abs(ref))):
+        raise RuntimeError(f"{what}: max|d| {np.abs(got - ref).max()} "
+                           f"above {LOSS_TOL}·(1 + |ref|)")
+    return float(np.abs(got - ref).max())
+
+
+def tam_compare(got, ref, what: str) -> dict:
+    """Messages, scores and recorded losses of two ``TAMResult``s within
+    1e-4·(1 + |ref|); the largest difference of each."""
+    out = {f: within(getattr(got, f), getattr(ref, f), f"{what} {f}")
+           for f in ("member_messages", "scores", "per_round_scores")}
+    out["losses"] = max(within(got.loss_history[ep], v, f"{what} losses")
+                        for ep, v in ref.loss_history.items())
+    return out
+
+
+def tam_epoch_line(ens, pair, n: int, wall_ms: float) -> str:
+    """A TAM epoch's device time against its median wall time (busy share,
+    device ops), and its parts alone at the epoch's shapes: the 4 K1
+    launches, the einsums forward and backward, the ELL affinities forward
+    and backward; the rest (elementwise, Adam, padding) is the
+    difference."""
+    import torch
+
+    from ggad_tpu_torch.ops.sddmm import node_affinity
+    from ggad_tpu_torch.ops import bcsr_spmm as pb
+
+    dev, _, ops = device_ms(ens.step, iters=TAM_TIMED)
+    gen = torch.Generator(ens.x.device).manual_seed(3)
+    m = TAM_CUTTING
+
+    def randn(*shape, grad=False):
+        return torch.randn(*shape, device=ens.x.device, generator=gen,
+                           requires_grad=grad)
+
+    rows = pair.fwd.n_cols
+    h1, h2 = randn(rows, 2 * N_H), randn(rows, N_H)
+    w1 = randn(m, 2 * N_H, ens.x.shape[1], grad=True)
+    w2 = randn(m, N_H, 2 * N_H, grad=True)
+    a1 = randn(m, n, 2 * N_H, grad=True)
+    g1, g2 = randn(m, n, 2 * N_H), randn(m, n, N_H)
+    emb = randn(m, n, N_H, grad=True)
+    gm = randn(m, n)
+
+    def einsums():
+        o1 = torch.einsum("nf,mhf->mnh", ens.x, w1)
+        o2 = torch.einsum("mnf,mhf->mnh", a1, w2)
+        torch.autograd.grad([o1, o2], [w1, a1, w2], [g1, g2])
+
+    def affinities():
+        msg = torch.stack([node_affinity(ens.raw_ell, e) for e in emb])
+        torch.autograd.grad(msg, emb, gm)
+
+    parts = {name: device_ms(fn, iters=5)[0] for name, fn in [
+        ("K1 x4 (d 600 and 300, forward and transposed)",
+         lambda: (pb.bcsr_matmul(pair.fwd, h1), pb.bcsr_matmul(pair.fwd, h2),
+                  pb.bcsr_matmul(pair.bwd, h1), pb.bcsr_matmul(pair.bwd, h2))),
+        ("einsums forward + backward", einsums),
+        (f"{m} ELL affinities forward + backward", affinities)]}
+    parts["rest (elementwise, Adam, padding)"] = dev - sum(parts.values())
+    return (f"  tam epoch (photo, BCSR, {m} members): device time {dev:.4f} "
+            f"ms against a median of {wall_ms:.3f} ms, busy share "
+            f"{dev / wall_ms:.3f}; {ops:.1f} device ops an epoch; parts "
+            f"alone (ms, device): {json.dumps(parts)}")
+
+
+def tam_phase(cuda, k1: dict, k2: dict, later: list):
+    """TAM on the photo-shaped graph through ``run_tam_baseline`` (500
+    epochs on the block-diagonal route, K1's exact launches), its build,
+    epoch time and memory, the card's two routes against each other and
+    against the CPU; then the elliptic-shaped graph on ELL. Returns the
+    photo block-diagonal tile pair for the kernel phase; appends the
+    profiled epoch to ``later``."""
+    import math
+
+    import torch
+
+    from ggad_tpu_torch.datasets.splits import tam_split
+    from ggad_tpu_torch.datasets.synthetic import photo_bench, synthetic_like
+    from ggad_tpu_torch.graph import add_self_loops, from_scipy
+    from ggad_tpu_torch.models import tam
+    from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm, pick_tile_rows
+    from ggad_tpu_torch.ops.ell_spmm import as_ell_graph
+    from ggad_tpu_torch.train import baselines as tb
+
+    t_phase = time.perf_counter()
+    ds = photo_bench()
+    raw = add_self_loops(from_scipy(ds.adj, device=cuda))
+    row, col, _ = raw.host_coo()
+    tile_rows = pick_tile_rows(row, col, raw.n_nodes)
+    chunk = tam.member_chunk_for(raw, "bcsr", TAM_CUTTING, N_H,
+                                 tile_rows=tile_rows)
+    n_chunks = -(-TAM_CUTTING // chunk)
+    route = tam.tam_route(raw)
+    if route != "bcsr":
+        raise RuntimeError(f"tam: the photo graph took the {route} route")
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    res = tb.run_tam_baseline(ds, n_h=N_H, cutting=TAM_CUTTING,
+                              num_epoch=TAM_EPOCHS, lr=TAM_LR, seed=0,
+                              eval_every=1, device=cuda)
+    torch.cuda.synchronize()
+    n1, n2 = bcsr_spmm.launches, bcsr_sddmm_colsum.launches
+    if (n1, n2) != (TAM_K1 * TAM_EPOCHS * n_chunks, 0):
+        raise RuntimeError(f"tam: K1 {n1}, K2 {n2} launches; expected K1 "
+                           f"{TAM_K1 * TAM_EPOCHS * n_chunks}, K2 0")
+    rounds = [r for r in res.history if "round" in r]
+    if (len(rounds) != TAM_CUTTING
+            or not all(math.isfinite(r["auc"]) for r in res.history)):
+        raise RuntimeError(f"tam: bad history {res.history}")
+    peak_run = (torch.cuda.max_memory_allocated() - base) / 1e6
+    k1["float32"]["paths"]["tam (photo, BCSR)"] = n1
+    for rec in (k1["bfloat16"], *k2.values()):
+        rec["paths"]["tam (photo, BCSR)"] = 0
+    print(f"tam photo (BCSR, tile height {tile_rows}, {TAM_CUTTING} members "
+          f"in {n_chunks} chunk(s), n_h {N_H}): run_tam_baseline "
+          f"{TAM_EPOCHS} epochs {res.wall_time_s:.3f} s, K1 launches {n1}, "
+          f"K2 0, peak device memory {peak_run:.1f} MB above the earlier "
+          f"phases'; (round, AUROC, AP) "
+          f"{json.dumps([(r['round'], r['auc'], r['ap']) for r in rounds])}; "
+          f"final AUROC {res.auc:.6f} AP {res.ap:.6f}")
+
+    # the run's set-up again, part by part (host clock, each part ending
+    # in a synchronise), then its epochs alone
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    raw = add_self_loops(from_scipy(ds.adj, device=cuda))
+    normal = tam_split(ds.ano_labels, seed=0).normal_label_idx
+    lap("graph + I and split")
+    raw_ell = as_ell_graph(raw)
+    lap("raw flat ELL tables")
+    x, params, vals = tam_members(raw, ds, cuda)
+    norm = tam.sym_normalize_vals(vals, raw)
+    lap("init, cuts, normalisation")
+    base = torch.cuda.memory_allocated()
+    pair = tam.blockdiag_pair(raw, norm, tile_rows)
+    lap("block-diagonal pair")
+    held = (torch.cuda.memory_allocated() - base) / 1e6
+    store = sum(t.values.numel() * 4 for t in (pair.fwd, pair.bwd)) / 1e6
+    csr = sum((t.row_ptr.numel() + t.col.numel() + t.val.numel()) * 4
+              for t in (pair.fwd, pair.bwd)) / 1e6
+    ens = tam.TAMEnsemble(tam.blockdiag_aggregate(pair, ds.n_nodes), x,
+                          raw_ell, torch.as_tensor(normal, device=cuda),
+                          params, TAM_LR)
+    ens.step()
+    lap("first epoch")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bcsr_spmm.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TAM_TIMED + 1)]
+    ev[0].record()
+    for i in range(TAM_TIMED):
+        ens.step()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    if bcsr_spmm.launches != TAM_K1 * TAM_TIMED:
+        raise RuntimeError(f"tam epochs: K1 {bcsr_spmm.launches} launches "
+                           f"in {TAM_TIMED} epochs")
+    epochs = [ev[i].elapsed_time(ev[i + 1]) for i in range(TAM_TIMED)]
+    epoch_ms = statistics.median(epochs)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    print(f"  block-diagonal pair: {pair.fwd.n_tiles} tiles an orientation "
+          f"({pair.fwd.n_rows}x{pair.fwd.n_cols}, nnz {pair.fwd.col.numel()}"
+          f" / {pair.bwd.col.numel()}); device memory {held:.1f} MB (tile "
+          f"stores {store:.1f}, compressed rows {csr:.1f})")
+    print(f"  the run's set-up again by part (s, host clock): "
+          f"{json.dumps(parts)}")
+    print(f"  epoch ms (CUDA events, {TAM_TIMED} after a warm-up) "
+          f"{[round(e, 3) for e in epochs]} (median {epoch_ms:.3f}); peak "
+          f"device memory in an epoch {peak:.1f} MB above what is held")
+    later.append(partial(tam_epoch_line, ens, pair, ds.n_nodes, epoch_ms))
+
+    kw = dict(n_h=N_H, cutting=TAM_CUTTING, lr=TAM_LR,
+              num_epoch=TAM_ROUTE_EPOCHS, val_stack=vals,
+              member_params=params, loss_record=range(TAM_ROUTE_EPOCHS))
+    t0 = time.perf_counter()
+    by_route = {impl: tam.run_tam(raw, ds.features, normal, impl=impl, **kw)
+                for impl in ("bcsr", "ell")}
+    torch.cuda.synchronize()
+    diff = tam_compare(by_route["bcsr"], by_route["ell"], "tam BCSR vs ELL")
+    print(f"  card BCSR vs card ELL, {TAM_ROUTE_EPOCHS} epochs from the same "
+          f"cut values and weights: max|d| {json.dumps(diff)} (tol "
+          f"{LOSS_TOL}·(1 + |ELL|)); {time.perf_counter() - t0:.3f} s")
+
+    m = TAM_CPU_MEMBERS
+    kw = dict(n_h=N_H, cutting=m, lr=TAM_LR, num_epoch=TAM_CPU_EPOCHS,
+              loss_record=range(TAM_CPU_EPOCHS), val_stack=vals[:m].cpu(),
+              member_params={k: v[:m] for k, v in params.items()})
+    t0 = time.perf_counter()
+    card = tam.run_tam(raw, ds.features, normal, impl="bcsr", **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu = tam.run_tam(add_self_loops(from_scipy(ds.adj, device="cpu")),
+                      ds.features, normal, impl="ell", **kw)
+    diff = tam_compare(card, cpu, "tam card vs CPU")
+    last = TAM_CPU_EPOCHS - 1
+    print(f"  card BCSR vs CPU ELL, {m} members, {TAM_CPU_EPOCHS} epochs: "
+          f"max|d| {json.dumps(diff)} (tol {LOSS_TOL}·(1 + |CPU|)); last "
+          f"losses card {card.loss_history[last].tolist()} cpu "
+          f"{cpu.loss_history[last].tolist()}; card {t1 - t0:.3f} s, CPU "
+          f"{time.perf_counter() - t1:.3f} s")
+
+    ell = synthetic_like("elliptic")
+    route = tam.tam_route(add_self_loops(from_scipy(ell.adj, device=cuda)))
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    res = tb.run_tam_baseline(ell, n_h=N_H, cutting=TAM_CUTTING,
+                              num_epoch=TAM_ELL_EPOCHS, lr=TAM_LR, seed=0,
+                              eval_every=1, device=cuda)
+    torch.cuda.synchronize()
+    if route != "ell" or bcsr_spmm.launches or bcsr_sddmm_colsum.launches:
+        raise RuntimeError(f"tam on the elliptic shape: route {route}, K1 "
+                           f"{bcsr_spmm.launches}, K2 "
+                           f"{bcsr_sddmm_colsum.launches}")
+    if not all(math.isfinite(r["auc"]) for r in res.history):
+        raise RuntimeError(f"tam (ELL): bad history {res.history}")
+    for rec in (*k1.values(), *k2.values()):
+        rec["paths"]["tam (elliptic, ELL)"] = 0
+    print(f"tam on the elliptic-shaped graph under auto: route {route}, "
+          f"{TAM_ELL_EPOCHS} epochs {res.wall_time_s:.3f} s, K1 0, K2 0; "
+          f"final AUROC {res.auc:.6f} AP {res.ap:.6f}")
+    print(f"tam phase: {time.perf_counter() - t_phase:.1f} s")
+    return pair
+
+
+def tam_kernel_checks(pair, k1: dict) -> None:
+    """K1 f32 on TAM's block-diagonal tile pair, forward and transposed, at
+    gcn1's and gcn2's widths: held against its plain version and timed
+    against its bound, its plain version and ``torch.sparse.mm``."""
+    import torch
+
+    gen = torch.Generator(pair.fwd.values.device).manual_seed(4)
+    recs = {}
+    for d in (2 * N_H, N_H):
+        h = torch.randn(pair.fwd.n_cols, d, device=pair.fwd.values.device,
+                        generator=gen)
+        for side, tiles in (("forward", pair.fwd), ("transposed", pair.bwd)):
+            print(f"K1 TAM block-diagonal {side} f32: T={tiles.n_tiles} "
+                  f"tr={tiles.tile_height} {tiles.n_rows}x{tiles.n_cols} "
+                  f"d={d}")
+            rec = check_k1(tiles, h, "float32", timed=True)
+            recs[f"{side} d{d}"] = {key: rec[key] for key in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "design_bound_ms", "gather_tb_s", "library_ms",
+                "max_abs_err")}
+            print("  " + json.dumps(recs[f"{side} d{d}"]))
+        del h
+    k1["float32"]["tam_blockdiag"] = recs
+    k1["float32"]["max_abs_err"] = max(
+        k1["float32"]["max_abs_err"],
+        *(r["max_abs_err"] for r in recs.values()))
+
+
 def kernel_record(name, source, replaces, rec) -> dict:
     paths = rec.get("paths", {})
     out = {"name": name, "route": "cuda", "source": source,
@@ -1418,8 +1729,9 @@ def kernel_record(name, source, replaces, rec) -> dict:
            "design_bound_ms": rec["design_bound_ms"],
            "gather_mb": rec["gather_mb"], "gather_tb_s": rec["gather_tb_s"],
            "library_ms": rec["library_ms"]}
-    if "at_d745" in rec:
-        out["at_d745"] = rec["at_d745"]
+    for key in ("at_d745", "tam_blockdiag"):
+        if key in rec:
+            out[key] = rec[key]
     if "tile_rows_sweep" in rec:
         out["also_replaces"] = [STUDY_REPLACES]
         out["tile_rows_sweep"] = {r["tile_rows"]: r["spmm_ms"]
@@ -1457,7 +1769,9 @@ def main() -> int:
     sparse_phase(cuda, k1, k2, later)
     minibatch_phase(cuda, k1, k2, later)
     zoo_phase(cuda, k1, k2, later)
+    tam_pair = tam_phase(cuda, k1, k2, later)
     kernel_phase(cuda, k1, k2)
+    tam_kernel_checks(tam_pair, k1)
     for line in later:
         print(line())
 

@@ -16,8 +16,12 @@ tiles the affinity through the hand-written SDDMM kernel),
 ``train.config``); the full-batch baseline zoo (``models.dominant``,
 ``anomaly_dae``, ``ocgnn``, ``aegis``, ``gaan``, run by
 ``train.baselines``; OCGNN's and AEGIS's GCN layers through the BCSR
-kernel on a tile-dense graph); and the CLI (training, ``--score_only``,
-``--model ggad-minibatch``, the baselines' ``--model``, ``--config``).
+kernel on a tile-dense graph); TAM (``models.tam``, run by
+``train.baselines.run_tam_baseline``: the ensemble's GCN layers through
+the BCSR kernel on the block-diagonal tile pair of its members, or on
+shared ELL tables); and the CLI (training, ``--score_only``,
+``--model ggad-minibatch``, the baselines' ``--model`` and TAM's
+``--tam_split``, ``--config``).
 """
 
 __version__ = "0.1.0"

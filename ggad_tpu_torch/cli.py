@@ -6,7 +6,8 @@ preset registry, reference ``run.py:38-66``), ``--score_only``, which
 restores ``--checkpoint_dir`` and scores the dataset, minibatch GGAD
 (``--model ggad-minibatch``, the DGraph path), the full-batch baseline
 zoo (``--model dominant|anomalydae|ocgnn|aegis|gaan``, with
-``--aegis_faithful``) and ``--config``, a YAML
+``--aegis_faithful``), TAM (``--model tam``, with ``--tam_split`` /
+``--no-tam_split``) and ``--config``, a YAML
 config whose list-valued keys expand to a grid (``--multi_run`` runs all
 of it and aggregates). All run on the card unless ``--device cpu`` is
 given. ``--spmm_impl`` picks the full-batch sparse route (``auto``: BCSR
@@ -30,7 +31,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "synthetic|synthetic_<name>")
     p.add_argument("--model", type=str, default="ggad",
                    choices=["ggad", "ggad-minibatch", "dominant",
-                            "anomalydae", "ocgnn", "aegis", "gaan"])
+                            "anomalydae", "ocgnn", "aegis", "gaan",
+                            "tam"])
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
@@ -72,6 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--aegis_faithful", action="store_true",
                    help="reproduce the reference AEGIS script's effective "
                         "behavior, bugs included (model_AEGIS.py:240)")
+    p.add_argument("--tam_split", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="use TAM's own split protocol (80%% labeled "
+                        "normals + active contamination, "
+                        "utils_tam.py:159-178); --no-tam_split keeps the "
+                        "GGAD split the dataset ships with")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' runs on the "
                         "host)")

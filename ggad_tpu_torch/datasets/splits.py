@@ -9,7 +9,8 @@ Reference ``utils.py:89-141``:
     the first ``seed_frac`` of them (0.05 for Amazon, 0.15 otherwise).
 
 ``reference_split``'s contamination options and ``camouflage_features``
-copy ``splits.py:40-97``; the minibatch (DGraph) path's split,
+copy ``splits.py:40-97``; TAM's own protocol, ``tam_split``, copies
+``splits.py:100-140``; the minibatch (DGraph) path's split,
 ``minibatch_split`` and its per-dataset presets, copies
 ``splits.py:143-262``.
 """
@@ -96,6 +97,49 @@ def camouflage_features(features: np.ndarray, ano_labels: np.ndarray,
     anom = np.flatnonzero(ano_labels == 1)
     feats[np.ix_(anom, np.arange(k))] = normal_mean[:k]
     return feats
+
+
+def tam_split(ano_labels: np.ndarray, *, seed: int = 0,
+              train_rate: float = 0.3, val_rate: float = 0.1,
+              labeled_normal_rate: float = 0.8,
+              contamination_rate: float = 0.15) -> SplitResult:
+    """TAM's own split protocol (reference ``utils_tam.py:140-179``):
+
+      * 30/10/60 train/val/test shuffle split;
+      * labeled normals = first 80% of the normal nodes in train
+        (vs. GGAD's 50%);
+      * ACTIVE contamination: 15% of ALL real anomalies (shuffled) are
+        appended to the labeled-normal set and removed from the test
+        split.
+
+    TAM has no outlier-seed set; ``abnormal_label_idx`` is empty.
+    """
+    rng = np.random.default_rng(seed)
+    n = int(ano_labels.shape[0])
+    all_idx = rng.permutation(n)
+    n_train = int(n * train_rate)
+    n_val = int(n * val_rate)
+    idx_train = all_idx[:n_train]
+    idx_val = all_idx[n_train:n_train + n_val]
+    idx_test = all_idx[n_train + n_val:]
+
+    normals_in_train = idx_train[ano_labels[idx_train] == 0]
+    n_labeled = int(len(normals_in_train) * labeled_normal_rate)
+    normal_label_idx = normals_in_train[:n_labeled].copy()
+
+    real_abnormal = np.flatnonzero(ano_labels == 1)
+    rng.shuffle(real_abnormal)
+    add = real_abnormal[: int(contamination_rate * len(real_abnormal))]
+    normal_label_idx = np.concatenate([normal_label_idx, add])
+    idx_test = np.setdiff1d(idx_test, add)
+
+    return SplitResult(
+        idx_train=np.sort(idx_train),
+        idx_val=np.sort(idx_val),
+        idx_test=np.sort(idx_test),
+        normal_label_idx=normal_label_idx,
+        abnormal_label_idx=np.zeros(0, np.int64),
+    )
 
 
 def minibatch_split(

@@ -8,7 +8,10 @@ The tree is a nested dict of numpy arrays, the ``params`` collection of
 (``Dominant``, ``AnomalyDAE``, ``OCGNNEncoder``, ``AEGIS``, ``GAAN``),
 with or without the outer ``{"params": ...}``. Flax's ``kernel`` (a dense
 layer's, a GAT's, a bilinear critic's) is ``[in, out]``; the port's
-``weight`` is ``[out, in]``. Every other leaf (``bias``, ``alpha``, a
+``weight`` is ``[out, in]``. Only the last two axes swap, so a stacked
+tree (TAM's ensemble: ``[M, in, out]`` kernels, ``[M, out]`` biases,
+``[M]`` alphas, one leading member axis on every leaf) maps to stacked
+``[M, out, in]`` weights. Every other leaf (``bias``, ``alpha``, a
 GAT's ``att_src``/``att_dst``, a PyG MLP's ``bn_scale``/``bn_bias``, and
 ``MiniBatchGGAD``'s ``w_enc``/``w_score``, which the port keeps
 ``[in, out]``) keeps its name and shape.
@@ -35,7 +38,7 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
                 continue
             arr = np.asarray(child, dtype=np.float32)
             if key == "kernel":
-                key, arr = "weight", arr.T
+                key, arr = "weight", np.swapaxes(arr, -1, -2)
             out[".".join(prefix + [key])] = torch.from_numpy(
                 np.array(arr, order="C"))
 
@@ -51,7 +54,8 @@ def params_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
         *path, key = name.split(".")
         arr = tensor.detach().cpu().numpy()
         if key == "weight":
-            key, arr = "kernel", np.array(arr.T, order="C")
+            key, arr = "kernel", np.array(np.swapaxes(arr, -1, -2),
+                                          order="C")
         node = tree
         for p in path:
             node = node.setdefault(p, {})

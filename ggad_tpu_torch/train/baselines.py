@@ -8,7 +8,12 @@ initial weights and its optimizers, and running one epoch per ``step()``;
 minibatch GGAD branch of ``run_minibatch_model`` (``baselines.py:581-605``)
 is here too.
 
-The graph takes the GGAD trainer's route (``full_batch.maybe_bcsr``,
+TAM (``run_tam_baseline``, ``baselines.py:488-545``) trains its
+truncated-affinity ensemble through ``models.tam.run_tam``, which picks
+its own route (the block-diagonal tile pair on K1, or the shared ELL
+tables) and reports one AUROC/AP a round.
+
+The zoo's graph takes the GGAD trainer's route (``full_batch.maybe_bcsr``,
 decided by the graph alone): on a tile-dense graph OCGNN's and AEGIS's
 GCN layers run K1 forward and, on the transposed tiles, backward, which
 only they build. DOMINANT, AnomalyDAE and GAAN read the edge list alone
@@ -30,9 +35,9 @@ import scipy.sparse as sp
 import torch
 
 from ggad_tpu_torch.datasets.core import GADDataset
-from ggad_tpu_torch.datasets.splits import minibatch_split_for
+from ggad_tpu_torch.datasets.splits import minibatch_split_for, tam_split
 from ggad_tpu_torch.device import DeviceLike, resolve_device
-from ggad_tpu_torch.graph import from_scipy
+from ggad_tpu_torch.graph import add_self_loops, from_scipy
 from ggad_tpu_torch.interop import as_state_dict
 from ggad_tpu_torch.models.aegis import AEGIS, aegis_losses, aegis_scores
 from ggad_tpu_torch.models.anomaly_dae import AnomalyDAE, anomaly_dae_loss
@@ -44,6 +49,7 @@ from ggad_tpu_torch.models.ocgnn import (
     ocgnn_loss,
     ocgnn_scores,
 )
+from ggad_tpu_torch.models.tam import run_tam
 from ggad_tpu_torch.ops.metrics import average_precision, roc_auc
 from ggad_tpu_torch.ops.normalize import normalize_adj_reference
 from ggad_tpu_torch.train.full_batch import maybe_bcsr
@@ -52,7 +58,7 @@ from ggad_tpu_torch.train.minibatch import MiniBatchTrainer
 # the reconstruction family: model and training loss by name
 RECONSTRUCTION = {"dominant": (Dominant, dominant_loss),
                   "anomalydae": (AnomalyDAE, anomaly_dae_loss)}
-BASELINES = (*RECONSTRUCTION, "ocgnn", "aegis", "gaan")
+BASELINES = (*RECONSTRUCTION, "ocgnn", "aegis", "gaan", "tam")
 
 
 @dataclasses.dataclass
@@ -409,14 +415,67 @@ def run_gaan(ds: GADDataset, *, num_epoch: int = 100, lr: float = 1e-3,
 
 
 # ---------------------------------------------------------------------------
+# TAM
+# ---------------------------------------------------------------------------
+
+def run_tam_baseline(ds: GADDataset, *, n_h: int = 300, cutting: int = 8,
+                     n_tree: int = 1, num_epoch: int = 500, lr: float = 1e-5,
+                     seed: int = 0, use_tam_split: bool = True,
+                     eval_every: Optional[int] = None, verbose: bool = False,
+                     logger=None, device: DeviceLike = None,
+                     **tam_kwargs) -> BaselineResult:
+    """TAM on ``ds`` (``baselines.py:488-545``). ``use_tam_split=True``
+    (the default) takes TAM's own protocol, ``tam_split`` with ``seed``
+    (80% labeled normals, 15% of the real anomalies added to them and
+    removed from the test split), instead of the dataset's GGAD split.
+
+    The history holds one AUROC/AP record a round (the running mean score
+    after each cut; ``eval_every`` takes every k-th round), then the final
+    one. ``tam_kwargs`` go to ``run_tam`` (``impl``, ``member_chunk``,
+    ``draws``, ``val_stack``, ``member_params``, ``loss_record``)."""
+    t0 = time.time()
+    raw_adj = add_self_loops(from_scipy(ds.adj,
+                                        device=resolve_device(device)))
+    if use_tam_split:
+        split = tam_split(ds.ano_labels, seed=seed)
+        normal_idx, idx_test = split.normal_label_idx, split.idx_test
+    else:
+        normal_idx, idx_test = ds.normal_label_idx, ds.idx_test
+    res = run_tam(raw_adj, ds.features, normal_idx, n_h=n_h,
+                  cutting=cutting, n_tree=n_tree, num_epoch=num_epoch, lr=lr,
+                  seed=seed, verbose=verbose, **tam_kwargs)
+    labels = ds.ano_labels[idx_test]
+    history = []
+    for r in range(0, cutting, max(int(eval_every or 1), 1)):
+        s = res.per_round_scores[r][idx_test]
+        rec = {"round": r + 1, "auc": roc_auc(labels, s),
+               "ap": average_precision(labels, s)}
+        history.append(rec)
+        if logger:
+            logger(rec)
+        if verbose:
+            print(f"tam round {r + 1}/{cutting}: AUROC {rec['auc']:.4f} "
+                  f"AP {rec['ap']:.4f}")
+    auc = roc_auc(labels, res.scores[idx_test])
+    ap = average_precision(labels, res.scores[idx_test])
+    rec = {"epoch": num_epoch, "auc": auc, "ap": ap}
+    history.append(rec)
+    if logger:
+        logger(rec)
+    return BaselineResult(auc=auc, ap=ap, history=history,
+                          wall_time_s=time.time() - t0)
+
+
+# ---------------------------------------------------------------------------
 # CLI dispatch
 # ---------------------------------------------------------------------------
 
 def run_baseline(name: str, ds: GADDataset, args) -> dict:
     """Train full-batch baseline ``name`` on ``ds`` with the CLI's ``args``
     (num_epoch, lr, seed, eval_every, embedding_dim, aegis_faithful,
-    spmm_impl, device) and return the CLI's record
-    (``baselines.py:550-578``)."""
+    tam_split, spmm_impl, device) and return the CLI's record
+    (``baselines.py:550-578``). TAM takes its own defaults (500 epochs,
+    lr 1e-5) and route, as in JAX."""
     common = dict(num_epoch=args.num_epoch or 100, lr=args.lr or 1e-3,
                   seed=args.seed, eval_every=args.eval_every, verbose=True,
                   spmm_impl=args.spmm_impl, device=args.device)
@@ -430,6 +489,13 @@ def run_baseline(name: str, ds: GADDataset, args) -> dict:
                         faithful=args.aegis_faithful, **common)
     elif name == "gaan":
         res = run_gaan(ds, **common)
+    elif name == "tam":
+        res = run_tam_baseline(ds, n_h=args.embedding_dim,
+                               num_epoch=args.num_epoch or 500,
+                               lr=args.lr or 1e-5, seed=args.seed,
+                               use_tam_split=args.tam_split,
+                               eval_every=args.eval_every, verbose=True,
+                               device=args.device)
     else:
         raise ValueError(f"full-batch baseline {name!r} is not ported")
     return res.as_dict(name, ds.name)

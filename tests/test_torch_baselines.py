@@ -200,7 +200,7 @@ def test_run_baseline_rejects_unported_models():
     args = type("A", (), dict(num_epoch=1, lr=None, seed=0, eval_every=1,
                               spmm_impl="coo", device="cpu"))()
     with pytest.raises(ValueError, match="not ported"):
-        tb.run_baseline("tam", synthetic_gad(**DS_KW), args)
+        tb.run_baseline("pcgnn", synthetic_gad(**DS_KW), args)
 
 
 def test_faithful_aegis_pretrain_accumulates_gradients():

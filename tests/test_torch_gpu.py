@@ -507,3 +507,68 @@ def test_zoo_steps_on_the_card_match_the_cpu(cuda, name, faithful):
     assert all(n == 0 for _, _, n in cpu)
     for (_, a, _), (_, b, _) in zip(card, cpu):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def tam_inputs(device):
+    """A small tile-dense graph with self-loops, its features and labeled
+    normals, three members' cut values (seeded cuts on the CPU) and their
+    seeded stacked init."""
+    from ggad_tpu_torch.datasets.synthetic import synthetic_gad
+    from ggad_tpu_torch.models import tam
+
+    ds = synthetic_gad(n_nodes=700, avg_degree=12, feat_dim=40,
+                       anomaly_rate=0.08, seed=2)
+    raw = pg.add_self_loops(pg.from_scipy(ds.adj, device="cpu"))
+    gen = torch.Generator().manual_seed(0)
+    params = tam.init_members(ds.feat_dim, 24, 3, gen)
+    vals = tam.cut_stack(raw, torch.as_tensor(ds.features), 3, 1,
+                         [torch.rand(ds.n_nodes, generator=gen)
+                          for _ in range(3)])
+    return ds, pg.add_self_loops(pg.from_scipy(ds.adj, device=device)), \
+        vals, params
+
+
+@pytest.mark.parametrize("d", [600, 33])
+def test_tam_blockdiag_k1_matches_plain(cuda, d):
+    """K1 on TAM's block-diagonal tile pair, forward and transposed, at a
+    whole-vector and a ragged width: one launch each, within 1e-5 of its
+    plain version."""
+    from ggad_tpu_torch.models import tam
+
+    ds, raw, vals, _ = tam_inputs(cuda)
+    pair = tam.blockdiag_pair(raw, tam.sym_normalize_vals(vals.to(cuda), raw),
+                              256)
+    h = randn(pair.fwd.n_cols, d, device=cuda)
+    for tiles in (pair.fwd, pair.bwd):
+        before = pb.bcsr_spmm.launches
+        out = pb.bcsr_matmul(tiles, h)
+        torch.cuda.synchronize()
+        assert pb.bcsr_spmm.launches == before + 1
+        torch.testing.assert_close(out, pb.bcsr_spmm_plain(tiles, h),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_tam_run_on_the_card_matches_the_cpu(cuda):
+    """``run_tam`` on the card's block-diagonal route (K1: 4 launches an
+    epoch for one chunk, 8 for two) against the CPU's ELL route from the
+    same cut values and weights: scores, messages and recorded losses
+    within 1e-4."""
+    from ggad_tpu_torch.models import tam
+
+    ds, raw, vals, params = tam_inputs(cuda)
+    kw = dict(n_h=24, cutting=3, num_epoch=4, lr=1e-4, val_stack=vals,
+              member_params=params, loss_record=range(4))
+    cpu = tam.run_tam(pg.add_self_loops(pg.from_scipy(ds.adj, device="cpu")),
+                      ds.features, ds.normal_label_idx, impl="ell", **kw)
+    for chunk, launches in ((None, 16), (2, 32)):
+        before = pb.bcsr_spmm.launches
+        card = tam.run_tam(raw, ds.features, ds.normal_label_idx,
+                           impl="bcsr", member_chunk=chunk, **kw)
+        assert pb.bcsr_spmm.launches - before == launches
+        for field in ("scores", "per_round_scores", "member_messages"):
+            np.testing.assert_allclose(getattr(card, field),
+                                       getattr(cpu, field), rtol=1e-4,
+                                       atol=1e-4, err_msg=field)
+        for ep, losses in cpu.loss_history.items():
+            np.testing.assert_allclose(card.loss_history[ep], losses,
+                                       rtol=1e-4, atol=1e-4)
