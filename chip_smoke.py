@@ -42,6 +42,25 @@ Phases (any failure raises and the script exits non-zero):
      4,096 scores on the card against the CPU from the same weights,
      batches and draws (ids equal, losses and scores within 1e-4). Plain
      PyTorch: K1 and K2 must launch 0 times in the phase;
+ 6b. the minibatch baselines on phase 6's graph, ``adj + I`` and split
+     (plain PyTorch, K1 = K2 = 0 in the phase): GraphSAGE, PC-GNN (three
+     relations sharing one table), DOMINANT-mb, AnomalyDAE-mb and AEGIS-mb
+     at emb 64, batch 150 (+ 50 anomalies for the classifiers), 50
+     batches an epoch, through their runs' ``train()`` for 2 epochs: the
+     final AUROC/AP (best validation AUROC for the classifiers), the step
+     median (CUDA events), one epoch's wall, ``idx_test`` scoring in
+     nodes/s with the host metrics apart, held and peak device memory; 3
+     steps and 4,096 scores of each on the card against the CPU from the
+     same weights, batch ids (equal), draws and noise table (within
+     1e-4·(1 + |CPU|)); PC-GNN on three relations of their own
+     (``synthetic_gad(n_relations=3)``, 20,000 nodes), 2 steps against the
+     CPU; the exact set-union replay (symmetrized, no self-loops): 10
+     batches of 150 + 50 at one pad shape (U_pad, E_pad, the bytes of
+     ``mask2``), ``Adam(1e-3, weight_decay=0.007)``, each batch's host
+     build time and card step (CUDA events), the losses and 4,096
+     validation scores in 150-node slices against the CPU; ``rwr_subgraphs``
+     (4,096 seeds, size 4, walk 12) and ``pick_step`` (4,096 ids), card
+     equal to the CPU from the same draws;
   7. the full-batch baseline zoo on the photo-shaped graph at n_h 300
      (GAAN at its fixed noise 16 and hid 64): DOMINANT, AnomalyDAE,
      OCGNN, GAAN and AEGIS in both modes through their runners
@@ -85,7 +104,8 @@ Phases (any failure raises and the script exits non-zero):
      300 (gcn1's and gcn2's widths), timed against its bound, its plain
      version and ``torch.sparse.mm``;
  10. profile a request and a train step of each precision, photo and
-     ELL, a minibatch step and a step of each baseline: the device time
+     ELL, a minibatch step, a step of each minibatch baseline and a step
+     of each baseline of the zoo: the device time
      against the wall time (the card's busy share), the device operations
      a call and the largest kernels; the photo step's kernels alone and the ELL step's table
      products alone; a TAM epoch and its parts (K1, the einsums, the ELL
@@ -123,6 +143,18 @@ MB_EPOCHS = 2                                 # minibatch train() epochs
 MB_STEPS = 20                                 # timed minibatch steps
 MB_CPU_STEPS = 3                              # minibatch steps vs the CPU
 MB_CPU_SCORES = 4096                          # minibatch scores vs the CPU
+# the minibatch baselines (phase 6b): the five runners at full width,
+# epochs cut from the reference's 30; batch 150 (+ 50 anomalies for the
+# classifiers), 50 batches an epoch, as baselines.py:625-872
+MBB_MODELS = ("sage", "pcgnn", "dominant-minibatch", "anomalydae-minibatch",
+              "aegis-minibatch")
+MBB_EPOCHS = 2
+MBB_CPU_STEPS = 3                             # steps vs the CPU a model
+MBB_REL_STEPS = 2                             # PC-GNN, 3 relations, vs CPU
+EXACT_BATCHES = 10                            # exact replay batches
+EXACT_SCORES = 4096                           # exact eval nodes, 150 a slice
+MASK2_LIMIT = 8e9                             # bytes of f32 mask2 allowed
+RWR_SEEDS, RWR_SIZE, RWR_WALK = 4096, 4, 12
 KERNEL_SOURCES = ["bcsr_spmm", "bcsr_sddmm"]
 K1_REPLACES = "ggad_tpu/ops/pallas_spmm.py:96"
 STUDY_REPLACES = "scripts/tile_rows_study.py:52"   # K1's body, swept
@@ -1038,12 +1070,13 @@ def sparse_phase(cuda, k1: dict, k2: dict, later: list) -> None:
     print("ELL phase: K1 launches 0, K2 launches 0")
 
 
-def minibatch_phase(cuda, k1: dict, k2: dict, later: list) -> None:
+def minibatch_phase(cuda, k1: dict, k2: dict, later: list) -> tuple:
     """Phase 6: the DGraph path on the full-size DGraph-shaped graph
     through ``MiniBatchTrainer`` at the model's full width (emb 64,
     fanouts 16/8, batch 150 + 50, 150 batches an epoch); K1 and K2 must
     not launch anywhere in the phase; appends the profiled step line to
-    ``later``."""
+    ``later``. Returns the dataset, ``adj + I`` and the split, which the
+    next phase takes over."""
     import math
 
     import numpy as np
@@ -1159,6 +1192,7 @@ def minibatch_phase(cuda, k1: dict, k2: dict, later: list) -> None:
         rec["paths"]["minibatch (DGraph)"] = 0
     print(f"minibatch phase: K1 launches 0, K2 launches 0; "
           f"{time.perf_counter() - t_phase:.1f} s")
+    return ds, adj, (idx_train, idx_valid, idx_test, labels, idx_anom)
 
 
 def minibatch_card_vs_cpu(tr, inputs: dict, shape: dict, cuda) -> None:
@@ -1217,6 +1251,342 @@ def minibatch_card_vs_cpu(tr, inputs: dict, shape: dict, cuda) -> None:
           f"nodes max|d| {np.abs(card_s - cpu_s).max():.3g} "
           f"(tol {SCORE_TOL})")
 
+
+
+class SeededDraws:
+    """The same sequence of uniform draws on every device: each request
+    is a fresh CPU draw of one seeded generator."""
+
+    def __init__(self, seed: int):
+        import torch
+
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def __call__(self, shape):
+        import torch
+
+        return torch.rand(shape, generator=self.gen)
+
+
+def mbb_run(name: str, inputs: dict, idx_anom, device, **kw):
+    """One minibatch baseline's run object (``train.baselines``) at the
+    reference's width on ``inputs``."""
+    from ggad_tpu_torch.train import baselines as tb
+
+    if name in tb.MINIBATCH_CLASSIFIERS:
+        return tb.MiniBatchClassifierRun(**inputs, name=name,
+                                         idx_anomaly=idx_anom,
+                                         device=device, **kw)
+    return tb.MiniBatchReconRun(**inputs, name=name, device=device, **kw)
+
+
+def mbb_main_path(name: str, inputs: dict, idx_anom, cuda,
+                  later: list) -> None:
+    """``name`` trained for ``MBB_EPOCHS`` epochs through its run's
+    ``train()`` (what ``run_minibatch_*`` calls), then timed: step median,
+    one epoch, ``idx_test`` scoring apart from its host metrics, held and
+    peak device memory."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ggad_tpu_torch.ops import metrics as pm
+
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    run = mbb_run(name, inputs, idx_anom, cuda, num_epochs=MBB_EPOCHS)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    held = (torch.cuda.memory_allocated() - base) / 1e6
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack(run.losses).tolist()
+    if (len(losses) != MBB_EPOCHS * run.num_batches
+            or not all(map(math.isfinite, losses))
+            or not all(math.isfinite(v) for v in res.values())):
+        raise RuntimeError(f"{name}: bad result {res}, losses {losses}")
+
+    gen = torch.Generator(cuda).manual_seed(1)
+    batches, ys = run.draw_batches(np.random.default_rng(1))
+    nb, b = batches.shape
+    us = [run.draw((nb, *s), gen) for s in run.sample_shapes(b)]
+
+    def step(i):
+        return run.step(batches[i], None if ys is None else ys[i],
+                        [u[i] for u in us])
+
+    for i in range(3):                                       # warm-up
+        step(i)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(MB_STEPS + 1)]
+    ev[0].record()
+    for i in range(MB_STEPS):
+        step(3 + i)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    steps = [ev[i].elapsed_time(ev[i + 1]) for i in range(MB_STEPS)]
+    step_ms = statistics.median(steps)
+    t0 = time.perf_counter()
+    run.train_epoch(batches, ys).item()
+    epoch_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6 - held
+    idx_test = run.idx_test
+    t0 = time.perf_counter()
+    probs = run.score_nodes(idx_test)
+    score_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y = run.labels[np.asarray(idx_test)]
+    pm.roc_auc(y, probs)
+    pm.average_precision(y, probs)
+    metrics_s = time.perf_counter() - t0
+    print(f"{name}: run object {prep_s:.3f} s (table and features to the "
+          f"card), held {held:.1f} MB; train() {MBB_EPOCHS} epochs x "
+          f"{run.num_batches} steps (+ validations, test) {wall:.3f} s; "
+          f"losses first/last {losses[0]:.6f} / {losses[-1]:.6f}; "
+          + json.dumps(res))
+    print(f"  step ms (CUDA events, {MB_STEPS} after 3 warm-up) "
+          f"{[round(x, 3) for x in steps]} (median {step_ms:.3f}); one epoch "
+          f"({nb} steps, one read) {epoch_s:.3f} s; score_nodes over "
+          f"idx_test ({len(idx_test)} nodes) {score_s:.3f} s = "
+          f"{len(idx_test) / score_s:.0f} nodes/s; host metrics "
+          f"{metrics_s:.3f} s; peak device memory above the held "
+          f"{peak:.1f} MB (train(), its scoring, the timed steps)")
+    later.append(partial(busy_line, f"{name} train step",
+                         lambda: step(0), step_ms, MB_STEPS))
+
+
+def mbb_card_vs_cpu(name: str, inputs: dict, idx_anom, cuda,
+                    steps: int = MBB_CPU_STEPS, n_scores: int = MB_CPU_SCORES,
+                    **run_kw) -> None:
+    """``steps`` steps and ``n_scores`` scores of ``name`` on the card and
+    on the CPU from the same initial weights, batch ids (equal), draws and
+    (AEGIS-mb) noise table: losses and scores within 1e-4. ``run_kw`` sets
+    fields of both runs."""
+    import numpy as np
+    import torch
+
+    kw = dict(num_batches=steps, draws=SeededDraws(3), **run_kw)
+    out, extra = [], {}
+    nodes = np.random.default_rng(4).choice(
+        inputs["idx_valid"], n_scores, replace=False)
+    for device in (cuda, "cpu"):
+        run = mbb_run(name, inputs, idx_anom, device, **kw, **extra)
+        kw["draws"] = SeededDraws(3)
+        extra = dict(initial_params={k: v.detach().clone() for k, v in
+                                     run.model.state_dict().items()})
+        if name == "aegis-minibatch":
+            extra["noise_table"] = run.noise_table
+        batches, ys = run.draw_batches(np.random.default_rng(5))
+        run.train_epoch(batches, ys)
+        out.append((batches.cpu(), torch.stack(run.losses).tolist(),
+                    run.score_nodes(nodes)))
+    (card_ids, card, card_s), (cpu_ids, cpu, cpu_s) = out
+    if not torch.equal(card_ids, cpu_ids):
+        raise RuntimeError(f"{name}: the card drew other batch ids")
+    diff = within(card, cpu, f"{name} card vs CPU losses")
+    np.testing.assert_allclose(card_s, cpu_s, rtol=SCORE_TOL, atol=SCORE_TOL)
+    print(f"  {name} card vs CPU, {steps} steps from the same weights, "
+          f"batch ids (equal), draws"
+          f"{' and noise table' if name == 'aegis-minibatch' else ''}: "
+          f"losses max|d| {diff:.3g} (card {[round(x, 6) for x in card]}); "
+          f"{n_scores} scores max|d| {np.abs(card_s - cpu_s).max():.3g} "
+          f"(tol {SCORE_TOL})")
+
+
+def pcgnn_relations_card_vs_cpu(cuda) -> None:
+    """PC-GNN on three relations of their own (``synthetic_gad(
+    n_relations=3)``, small), card against CPU."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from ggad_tpu_torch.datasets.splits import minibatch_split
+    from ggad_tpu_torch.datasets.synthetic import synthetic_gad
+
+    ds = synthetic_gad(n_nodes=20_000, avg_degree=10, feat_dim=17,
+                       n_relations=3, seed=0)
+    adj = ds.adj + sp.eye(ds.n_nodes, format="csr", dtype=np.float32)
+    idx_train, idx_valid, idx_test, labels, idx_anom = minibatch_split(
+        ds.ano_labels, seed=0)
+    print(f"PC-GNN on 3 relations: {ds.n_nodes} nodes, relation nnz "
+          f"{[r.nnz for r in ds.relations]}")
+    mbb_card_vs_cpu("pcgnn", dict(
+        adj=adj, features=ds.features, labels=labels, idx_train=idx_train,
+        idx_valid=idx_valid, idx_test=idx_test), idx_anom, cuda,
+        steps=MBB_REL_STEPS, n_scores=1024, relations=ds.relations)
+
+
+def exact_replay(ds, split, cuda) -> None:
+    """The exact set-union replay on the DGraph-shaped graph (symmetrized,
+    no self-loops): ``EXACT_BATCHES`` batches of 150 + 50, one pad shape
+    rounded to 64, ``torch.optim.Adam(1e-3, weight_decay=0.007)``, card
+    against CPU on every batch, then ``exact_score_nodes`` of
+    ``EXACT_SCORES`` validation nodes in 150-node slices."""
+    import numpy as np
+    import torch
+
+    from ggad_tpu_torch.models import sage_exact as px
+
+    idx_train, idx_valid, _, labels, idx_anom = split
+    t0 = time.perf_counter()
+    indptr, indices = px.replay_adjacency(ds.adj)
+    adj_s = time.perf_counter() - t0
+    rng = np.random.default_rng(6)
+    normals = idx_train[labels[idx_train] == 0]
+    anoms = np.unique(np.concatenate([idx_anom,
+                                      idx_train[labels[idx_train] == 1]]))
+    batches = []
+    for _ in range(EXACT_BATCHES):
+        nodes = np.concatenate([rng.choice(normals, 150),
+                                rng.choice(anoms, 50)])
+        batches.append((nodes, labels[nodes].astype(np.float32)))
+    t0 = time.perf_counter()
+    u_pad, e_pad = px.exact_pads(indptr, indices, [b[0] for b in batches])
+    pads_s = time.perf_counter() - t0
+    mask2_bytes = u_pad * e_pad * 4
+    print(f"exact replay: replay adjacency {adj_s:.3f} s ({len(indices)} "
+          f"entries); pads over {EXACT_BATCHES} batches {pads_s:.3f} s: "
+          f"U_pad {u_pad}, E_pad {e_pad}, mask2 {mask2_bytes / 1e9:.3f} GB "
+          f"f32")
+    if mask2_bytes > MASK2_LIMIT:
+        raise RuntimeError(f"mask2 of {mask2_bytes} bytes over the limit")
+    init = px.init_exact_params(ds.feat_dim, 64, device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+    sides = []
+    for device in (cuda, torch.device("cpu")):
+        params = {k: v.detach().to(device, copy=True).requires_grad_()
+                  for k, v in init.items()}
+        feats = torch.as_tensor(ds.features).to(device)
+        opt = torch.optim.Adam(params.values(), lr=1e-3, weight_decay=0.007)
+        sides.append((device, params, feats, opt, []))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build_s, step_ms = [], []
+    for nodes, y in batches:
+        t0 = time.perf_counter()
+        b_cpu = px.build_exact_batch(indptr, indices, nodes, y, u_pad,
+                                     e_pad, device="cpu")
+        build_s.append(time.perf_counter() - t0)
+        for j, (device, params, feats, opt, losses) in enumerate(sides):
+            b = b_cpu.to(device)
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            opt.zero_grad()
+            total, _ = px.exact_losses(params, feats, b)
+            total.backward()
+            opt.step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            if j == 0:                                  # the card's step
+                step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(total.item())
+            del b
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    card, cpu = sides[0][4], sides[1][4]
+    diff = within(card, cpu, "exact replay losses")
+    nodes = np.random.default_rng(7).choice(idx_valid, EXACT_SCORES,
+                                            replace=False)
+    scores, eval_s = [], []
+    for _, params, feats, _, _ in sides:
+        t0 = time.perf_counter()
+        scores.append(px.exact_score_nodes(params, feats, indptr, indices,
+                                           nodes))
+        eval_s.append(time.perf_counter() - t0)
+    np.testing.assert_allclose(scores[0], scores[1], rtol=SCORE_TOL,
+                               atol=SCORE_TOL)
+    print(f"  host build a batch (set unions + dense masks) "
+          f"{[round(x, 3) for x in build_s]} s (median "
+          f"{statistics.median(build_s):.3f}); card step ms (CUDA events, "
+          f"batch on the card) {[round(x, 3) for x in step_ms]} (median "
+          f"{statistics.median(step_ms):.3f}); peak device memory "
+          f"{peak:.1f} MB; losses card {[round(x, 6) for x in card]}, max|d| "
+          f"vs CPU {diff:.3g}; exact_score_nodes of {EXACT_SCORES} "
+          f"validation nodes (150 a slice) {eval_s[0]:.3f} s on the card "
+          f"(CPU {eval_s[1]:.3f} s), "
+          f"max|d| vs CPU {np.abs(scores[0] - scores[1]).max():.3g}")
+
+
+def rwr_check(ds, split, cuda) -> None:
+    """``rwr_subgraphs`` on ``RWR_SEEDS`` seeds of the raw DGraph-shaped
+    graph (size 4, walk 12) and ``pick_step`` for as many ids, card and
+    CPU from the same draws: ids and masks equal."""
+    import numpy as np
+    import torch
+
+    from ggad_tpu_torch.sampler import rwr
+    from ggad_tpu_torch.sampler.neighbor import NeighborTable
+
+    idx_train, _, _, labels, _ = split
+    gen = torch.Generator().manual_seed(8)
+    seeds = torch.randint(0, ds.n_nodes, (RWR_SEEDS,), generator=gen,
+                          dtype=torch.int32)
+    u_step, u_restart = torch.rand(2, RWR_WALK, RWR_SEEDS, generator=gen)
+    u = torch.rand(RWR_SEEDS, generator=gen)
+    idx = torch.as_tensor(np.asarray(idx_train, np.int64))
+    y = torch.as_tensor(np.asarray(labels))[idx]
+    out, times = [], []
+    for device in (cuda, "cpu"):
+        table = NeighborTable.from_scipy(ds.adj, device=device)
+        d_idx = idx.to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nodes, mask = rwr.rwr_subgraphs(
+            table, seeds.to(device), subgraph_size=RWR_SIZE,
+            u_step=u_step.to(device), u_restart=u_restart.to(device))
+        picked = rwr.pick_step(d_idx, y.to(device), table.degrees_of(d_idx),
+                               u.to(device))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        out.append([t.cpu() for t in (nodes, mask, picked)])
+        del table
+    if not all(torch.equal(a, b) for a, b in zip(*out)):
+        raise RuntimeError("rwr: the card's ids or masks differ from the "
+                           "CPU's")
+    filled = out[0][1].sum(1)
+    print(f"rwr: {RWR_SEEDS} seeds, subgraph {RWR_SIZE}, walk {RWR_WALK} "
+          f"and pick_step of {RWR_SEEDS} ids over {len(idx)} train ids: "
+          f"card equal to CPU (ids, masks); filled slots mean "
+          f"{filled.mean():.3f}; card {times[0]:.3f} s, CPU {times[1]:.3f} "
+          f"s (host clock)")
+
+
+def minibatch_baselines_phase(cuda, k1: dict, k2: dict, later: list, ds,
+                              adj, split) -> None:
+    """Phase 6b: the minibatch baselines on phase 6's DGraph-shaped graph,
+    ``adj + I`` and split; K1 and K2 must launch 0 times in the phase."""
+    import torch
+
+    from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    t_phase = time.perf_counter()
+    idx_train, idx_valid, idx_test, labels, idx_anom = split
+    inputs = dict(adj=adj, features=ds.features, labels=labels,
+                  idx_train=idx_train, idx_valid=idx_valid,
+                  idx_test=idx_test)
+    print(f"minibatch baselines on the DGraph-shaped graph: emb 64, batch "
+          f"150 (+ 50 anomalies for sage and pcgnn), 50 batches an epoch, "
+          f"{MBB_EPOCHS} epochs; fanouts sage 5, pcgnn 16/8 x 3 relations "
+          f"(one shared table), the reconstructions 16")
+    for name in MBB_MODELS:
+        mbb_main_path(name, inputs, idx_anom, cuda, later)
+        mbb_card_vs_cpu(name, inputs, idx_anom, cuda)
+    pcgnn_relations_card_vs_cpu(cuda)
+    exact_replay(ds, split, cuda)
+    rwr_check(ds, split, cuda)
+    torch.cuda.synchronize()
+    if bcsr_spmm.launches or bcsr_sddmm_colsum.launches:
+        raise RuntimeError(f"the minibatch baselines launched K1 "
+                           f"{bcsr_spmm.launches} and K2 "
+                           f"{bcsr_sddmm_colsum.launches} times")
+    for rec in (*k1.values(), *k2.values()):
+        rec["paths"]["minibatch baselines (DGraph)"] = 0
+    print(f"minibatch baselines phase: K1 launches 0, K2 launches 0; "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def zoo_run(name: str, ds, faithful: bool, device, **kw):
@@ -1767,7 +2137,9 @@ def main() -> int:
     serving_phase(cuda, k1, later)
     training_phase(cuda, k1, k2, later)
     sparse_phase(cuda, k1, k2, later)
-    minibatch_phase(cuda, k1, k2, later)
+    mb = minibatch_phase(cuda, k1, k2, later)
+    minibatch_baselines_phase(cuda, k1, k2, later, *mb)
+    del mb
     zoo_phase(cuda, k1, k2, later)
     tam_pair = tam_phase(cuda, k1, k2, later)
     kernel_phase(cuda, k1, k2)

@@ -4,7 +4,9 @@ The routes of ``ggad_tpu.cli`` that the port has (``cli.py:97-235``):
 full-batch GGAD training (the default; per-dataset defaults from the
 preset registry, reference ``run.py:38-66``), ``--score_only``, which
 restores ``--checkpoint_dir`` and scores the dataset, minibatch GGAD
-(``--model ggad-minibatch``, the DGraph path), the full-batch baseline
+(``--model ggad-minibatch``, the DGraph path) and its baselines
+(``--model sage|pcgnn|dominant-minibatch|anomalydae-minibatch|
+aegis-minibatch``), the full-batch baseline
 zoo (``--model dominant|anomalydae|ocgnn|aegis|gaan``, with
 ``--aegis_faithful``), TAM (``--model tam``, with ``--tam_split`` /
 ``--no-tam_split``) and ``--config``, a YAML
@@ -31,8 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "synthetic|synthetic_<name>")
     p.add_argument("--model", type=str, default="ggad",
                    choices=["ggad", "ggad-minibatch", "dominant",
-                            "anomalydae", "ocgnn", "aegis", "gaan",
-                            "tam"])
+                            "anomalydae", "ocgnn", "aegis", "gaan", "tam",
+                            "sage", "pcgnn", "dominant-minibatch",
+                            "anomalydae-minibatch", "aegis-minibatch"])
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
@@ -108,11 +111,6 @@ def main(argv=None) -> int:
           f"seeds={len(ds.abnormal_label_idx)}")
     if args.score_only:
         return score(args, ds)
-    if args.model == "ggad-minibatch":
-        from ggad_tpu_torch.train.baselines import run_minibatch_model
-
-        print(json.dumps(run_minibatch_model(args.model, ds, args)))
-        return 0
     if args.model != "ggad":
         from ggad_tpu_torch.train.baselines import run_baseline
 

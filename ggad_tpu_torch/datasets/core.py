@@ -29,6 +29,9 @@ class GADDataset:
     abnormal_label_idx: np.ndarray  # sacrificial outlier-seed nodes
     str_ano_labels: Optional[np.ndarray] = None
     attr_ano_labels: Optional[np.ndarray] = None
+    relations: Optional[list] = None   # per-relation adjacencies (csr),
+                                       # e.g. yelp's RUR/RTR/RSR, for
+                                       # PC-GNN's multi-relation path
 
     @property
     def n_nodes(self) -> int:

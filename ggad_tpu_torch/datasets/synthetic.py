@@ -36,6 +36,7 @@ def synthetic_gad(
     anomaly_rate: float = 0.05,
     feature_noise: float = 0.4,
     intra_frac: float = 0.9,
+    n_relations: int = 0,
     seed: int = 0,
     split_seed: int = 0,
     seed_frac: float = 0.15,
@@ -102,6 +103,9 @@ def synthetic_gad(
     adj.eliminate_zeros()
 
     split = reference_split(labels, seed=split_seed, seed_frac=seed_frac)
+    relations = None
+    if n_relations > 0:
+        relations = split_relations(adj, n_relations, seed=seed)
     return GADDataset(
         name=name,
         adj=adj,
@@ -112,7 +116,27 @@ def synthetic_gad(
         idx_test=split.idx_test,
         normal_label_idx=split.normal_label_idx,
         abnormal_label_idx=split.abnormal_label_idx,
+        relations=relations,
     )
+
+
+def split_relations(adj: sp.csr_matrix, n_relations: int,
+                    seed: int = 0) -> list:
+    """Partition an adjacency's edges into ``n_relations`` symmetric
+    relation graphs (the shape of yelp's RUR/RTR/RSR; PC-GNN takes one
+    neighbor table a relation). Each undirected edge draws its relation
+    from ``default_rng(seed + 12345)``."""
+    rng = np.random.default_rng(seed + 12345)
+    coo = sp.triu(adj, k=1).tocoo()     # undirected edges once
+    rel = rng.integers(0, n_relations, size=coo.nnz)
+    out = []
+    for r in range(n_relations):
+        m = rel == r
+        a = sp.coo_matrix(
+            (np.ones(int(m.sum()), np.float32),
+             (coo.row[m], coo.col[m])), shape=adj.shape)
+        out.append((a + a.T).tocsr())
+    return out
 
 
 def synthetic_like(name: str, *, scale: float = 1.0, seed: int = 0,

@@ -4,16 +4,19 @@
 The tree is a nested dict of numpy arrays, the ``params`` collection of
 ``ggad_tpu.models.ggad.GGAD.init`` (names as in
 ``tests/test_ggad_fullbatch.py:27-47``), of
-``ggad_tpu.models.sage.MiniBatchGGAD.init`` or of a baseline of the zoo
-(``Dominant``, ``AnomalyDAE``, ``OCGNNEncoder``, ``AEGIS``, ``GAAN``),
-with or without the outer ``{"params": ...}``. Flax's ``kernel`` (a dense
+``ggad_tpu.models.sage.MiniBatchGGAD.init``, of a baseline of the zoo
+(``Dominant``, ``AnomalyDAE``, ``OCGNNEncoder``, ``AEGIS``, ``GAAN``) or
+of a minibatch baseline (``GraphSAGEClassifier``, ``PCGNN``,
+``MiniBatchRecon``, ``MiniBatchAEGIS``), with or without the outer
+``{"params": ...}``. Flax's ``kernel`` (a dense
 layer's, a GAT's, a bilinear critic's) is ``[in, out]``; the port's
 ``weight`` is ``[out, in]``. Only the last two axes swap, so a stacked
 tree (TAM's ensemble: ``[M, in, out]`` kernels, ``[M, out]`` biases,
 ``[M]`` alphas, one leading member axis on every leaf) maps to stacked
 ``[M, out, in]`` weights. Every other leaf (``bias``, ``alpha``, a
 GAT's ``att_src``/``att_dst``, a PyG MLP's ``bn_scale``/``bn_bias``, and
-``MiniBatchGGAD``'s ``w_enc``/``w_score``, which the port keeps
+the minibatch models' ``w_*`` matrices (``w_enc``, ``w_score``,
+``w_cls``, ``w_inter``, PC-GNN's ``w_r0``…), which the port keeps
 ``[in, out]``) keeps its name and shape.
 """
 

@@ -1,5 +1,6 @@
-"""Minibatch GGAD over sampled neighborhoods, the DGraph-scale path
-(counterpart of ``ggad_tpu/models/sage.py:44-164``).
+"""Minibatch GGAD and the supervised GraphSAGE baseline over sampled
+neighborhoods, the DGraph-scale path (counterpart of
+``ggad_tpu/models/sage.py``).
 
   * A device-resident :class:`~ggad_tpu_torch.sampler.NeighborTable`
     feeds fixed-fanout sampled gathers with static ``[B, K]`` shapes.
@@ -16,9 +17,11 @@ one-class scorer, and BCE + cosine-affinity margin (margin 1) +
 0.1·egocentric closeness.
 
 The parameters keep flax's names and layouts: ``w_enc`` ``[F, emb]``,
-``w_score`` ``[emb, 1]`` and ``fc_gen`` a :class:`DenseNoBias`, so
-``interop.params_from_flax`` carries JAX's weights over unchanged. The
-uniform draws of the sampler are arguments (``u1``, ``u2``).
+``w_score`` ``[emb, 1]`` and ``fc_gen`` a :class:`DenseNoBias` (and
+:class:`GraphSAGEClassifier`'s ``w_enc`` ``[2F, emb]``, ``w_cls``
+``[emb, 2]``), so ``interop.params_from_flax`` carries JAX's weights over
+unchanged. The uniform draws of the sampler are arguments (``u``, ``u1``,
+``u2``).
 """
 
 from __future__ import annotations
@@ -45,7 +48,12 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor,
     return num / den.unsqueeze(-1)
 
 
-def _xavier(shape: tuple[int, int],
+def gather_rows(feats: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``feats[ids]`` for an id tensor of any shape: ``[*ids.shape, F]``."""
+    return feats.index_select(0, ids.reshape(-1)).view(*ids.shape, -1)
+
+
+def xavier_param(shape: tuple[int, int],
             generator: Optional[torch.Generator]) -> nn.Parameter:
     """Xavier-uniform ``[in, out]``, flax's ``xavier_uniform`` layout."""
     bound = math.sqrt(6.0 / (shape[0] + shape[1]))
@@ -75,8 +83,8 @@ class MiniBatchGGAD(nn.Module):
             raise ValueError(f"agg must be 'gcn' or 'mean', got {agg!r}")
         self.emb_dim, self.fanout1, self.fanout2 = emb_dim, fanout1, fanout2
         self.agg = agg
-        self.w_enc = _xavier((feat_dim, emb_dim), generator)
-        self.w_score = _xavier((emb_dim, 1), generator)
+        self.w_enc = xavier_param((feat_dim, emb_dim), generator)
+        self.w_score = xavier_param((emb_dim, 1), generator)
         self.fc_gen = DenseNoBias(emb_dim, emb_dim, generator=generator)
 
     def _agg_weight(self, table: NeighborTable,
@@ -102,7 +110,7 @@ class MiniBatchGGAD(nn.Module):
 
         # 1-hop aggregate of each batch node (the table has self-loops, so
         # the node itself takes part, like the reference's union)
-        x1 = feats.index_select(0, n1.reshape(-1)).view(*n1.shape, -1)
+        x1 = gather_rows(feats, n1)
         agg_b = masked_mean(x1, m1, 1) * self._agg_weight(table,
                                                           batch)[:, None]
         combined = torch.relu(agg_b @ self.w_enc)           # [B, emb]
@@ -116,7 +124,7 @@ class MiniBatchGGAD(nn.Module):
         # 2-hop: encode each sampled neighbor from ITS neighbors, then
         # mean those encodings per batch node: the affinity context
         # (reference src/graphsage.py:419-421)
-        x2 = feats.index_select(0, n2.reshape(-1)).view(*n2.shape, -1)
+        x2 = gather_rows(feats, n2)
         agg_n1 = masked_mean(x2, m2, 2) * self._agg_weight(table,
                                                            n1)[..., None]
         combined_expand = torch.relu(agg_n1 @ self.w_enc)   # [B, K1, emb]
@@ -164,3 +172,28 @@ def minibatch_ggad_losses(out: MiniBatchGGADOutput, n_anom: int, *,
 
     total = loss_cls + loss_constraint + w_rec * loss_rec
     return MiniBatchGGADLosses(total, loss_cls, loss_constraint, loss_rec)
+
+
+class GraphSAGEClassifier(nn.Module):
+    """The supervised GraphSAGE baseline (reference
+    ``src/graphsage.py:19-43,102-154``): concat(self, mean of ``fanout``
+    sampled neighbors) → ReLU(·``w_enc``) → class logits (·``w_cls``),
+    trained with cross-entropy."""
+
+    def __init__(self, feat_dim: int, emb_dim: int = 64, fanout: int = 5,
+                 num_classes: int = 2, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fanout = fanout
+        self.w_enc = xavier_param((2 * feat_dim, emb_dim), generator)
+        self.w_cls = xavier_param((emb_dim, num_classes), generator)
+
+    def forward(self, feats: torch.Tensor, table: NeighborTable,
+                batch: torch.Tensor, *, u: torch.Tensor) -> torch.Tensor:
+        """``[B, num_classes]`` logits of ``batch`` ([B] int32); ``u``
+        [B, fanout] draws the neighbors."""
+        n1, m1 = sample_neighbors(table, batch, self.fanout, u)
+        combined = torch.cat([feats.index_select(0, batch),
+                              masked_mean(gather_rows(feats, n1), m1, 1)],
+                             dim=-1)
+        return torch.relu(combined @ self.w_enc) @ self.w_cls

@@ -4,9 +4,13 @@ The full-batch baseline zoo (DOMINANT, AnomalyDAE, OCGNN, AEGIS, GAAN;
 ``baselines.py:27-487,550-579``): one run class per objective family,
 each preparing the graph once (:func:`_prep`), holding the model at its
 initial weights and its optimizers, and running one epoch per ``step()``;
-``_loop`` runs the epochs with the reference's evaluation cadence. The
-minibatch GGAD branch of ``run_minibatch_model`` (``baselines.py:581-605``)
-is here too.
+``_loop`` runs the epochs with the reference's evaluation cadence.
+
+The minibatch models (``baselines.py:581-872``): ``run_minibatch_model``
+dispatches GGAD's DGraph trainer and the minibatch baselines, GraphSAGE
+and PC-GNN (``run_minibatch_classifier``, :class:`MiniBatchClassifierRun`)
+and the sampled DOMINANT, AnomalyDAE and AEGIS (``run_minibatch_recon``,
+:class:`MiniBatchReconRun`), plain PyTorch on the device.
 
 TAM (``run_tam_baseline``, ``baselines.py:488-545``) trains its
 truncated-affinity ensemble through ``models.tam.run_tam``, which picks
@@ -49,9 +53,17 @@ from ggad_tpu_torch.models.ocgnn import (
     ocgnn_loss,
     ocgnn_scores,
 )
+from ggad_tpu_torch.models.pcgnn import PCGNN, pcgnn_loss, pcgnn_prob
+from ggad_tpu_torch.models.sage import GraphSAGEClassifier
+from ggad_tpu_torch.models.sage_recon import (
+    MiniBatchAEGIS,
+    MiniBatchRecon,
+    aegis_mb_losses,
+)
 from ggad_tpu_torch.models.tam import run_tam
 from ggad_tpu_torch.ops.metrics import average_precision, roc_auc
 from ggad_tpu_torch.ops.normalize import normalize_adj_reference
+from ggad_tpu_torch.sampler.neighbor import NeighborTable
 from ggad_tpu_torch.train.full_batch import maybe_bcsr
 from ggad_tpu_torch.train.minibatch import MiniBatchTrainer
 
@@ -59,6 +71,11 @@ from ggad_tpu_torch.train.minibatch import MiniBatchTrainer
 RECONSTRUCTION = {"dominant": (Dominant, dominant_loss),
                   "anomalydae": (AnomalyDAE, anomaly_dae_loss)}
 BASELINES = (*RECONSTRUCTION, "ocgnn", "aegis", "gaan", "tam")
+MINIBATCH_CLASSIFIERS = ("sage", "pcgnn")
+MINIBATCH_RECON = ("dominant-minibatch", "anomalydae-minibatch",
+                   "aegis-minibatch")
+MINIBATCH_MODELS = ("ggad-minibatch", *MINIBATCH_CLASSIFIERS,
+                    *MINIBATCH_RECON)
 
 
 @dataclasses.dataclass
@@ -496,8 +513,10 @@ def run_baseline(name: str, ds: GADDataset, args) -> dict:
                                use_tam_split=args.tam_split,
                                eval_every=args.eval_every, verbose=True,
                                device=args.device)
+    elif name in MINIBATCH_MODELS:
+        return run_minibatch_model(name, ds, args)
     else:
-        raise ValueError(f"full-batch baseline {name!r} is not ported")
+        raise ValueError(f"unknown model {name!r}")
     return res.as_dict(name, ds.name)
 
 
@@ -519,19 +538,378 @@ def minibatch_trainer(ds: GADDataset, *, split_seed: int,
 
 
 def run_minibatch_model(name: str, ds: GADDataset, args) -> dict:
-    """Train a minibatch model on ``ds`` with the CLI's ``args`` (seed,
-    num_epoch, checkpoint_dir, device) and return the CLI's record. As in
-    JAX, ``--seed`` draws the split; the trainer keeps its seed 0."""
-    if name != "ggad-minibatch":
-        raise ValueError(f"minibatch model {name!r} is not ported")
-    tr = minibatch_trainer(ds, split_seed=args.seed,
-                           num_epochs=args.num_epoch or 30,
-                           checkpoint_dir=args.checkpoint_dir,
-                           device=args.device)
-    res = tr.train(verbose=True)
-    out = {"model": name, "dataset": ds.name,
-           "best_val_auc": res.best_val_auc,
-           "best_epoch": res.best_epoch,
-           "wall_time_s": res.wall_time_s}
-    out.update({f"test_{k}": v for k, v in res.test_metrics.items()})
-    return out
+    """Train minibatch model ``name`` on ``ds`` with the CLI's ``args``
+    (seed, num_epoch, lr, checkpoint_dir, device) and return the CLI's
+    record (``baselines.py:581-622``). As in JAX, ``--seed`` draws the
+    split; the GGAD trainer keeps its seed 0, the baselines take it."""
+    if name not in MINIBATCH_MODELS:
+        raise ValueError(f"unknown minibatch model {name!r}")
+    if name == "ggad-minibatch":
+        tr = minibatch_trainer(ds, split_seed=args.seed,
+                               num_epochs=args.num_epoch or 30,
+                               checkpoint_dir=args.checkpoint_dir,
+                               device=args.device)
+        res = tr.train(verbose=True)
+        out = {"model": name, "dataset": ds.name,
+               "best_val_auc": res.best_val_auc,
+               "best_epoch": res.best_epoch,
+               "wall_time_s": res.wall_time_s}
+        out.update({f"test_{k}": v for k, v in res.test_metrics.items()})
+        return out
+    adj = ds.adj + sp.eye(ds.n_nodes, format="csr", dtype=np.float32)
+    idx_train, idx_valid, idx_test, labels, idx_anom = minibatch_split_for(
+        ds.name, ds.ano_labels, seed=args.seed)
+    common = dict(num_epochs=args.num_epoch or 30, lr=args.lr or 1e-3,
+                  seed=args.seed, verbose=True, device=args.device)
+    if name in MINIBATCH_CLASSIFIERS:
+        res = run_minibatch_classifier(
+            name, adj, ds.features, labels, idx_train, idx_anom, idx_valid,
+            idx_test, relations=ds.relations, **common)
+    else:
+        res = run_minibatch_recon(name, adj, ds.features, labels, idx_train,
+                                  idx_valid, idx_test, **common)
+    res.update({"model": name, "dataset": ds.name})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Minibatch baselines: GraphSAGE, PC-GNN and the sampled reconstructions
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _SampledRun:
+    """What the minibatch baselines share (``baselines.py:625-872``): the
+    neighbor table and features on the device, the model at its initial
+    weights (seeded init, or ``initial_params``: a flax tree or a
+    ``state_dict``), the uniform draws, and scoring in zero-padded chunks
+    of 1,024 ids, each chunk with its own draw.
+
+    The draws come from ``generator`` (seeded with ``seed``; scoring from
+    a fresh one seeded ``eval_seed``, JAX's scoring key), or from
+    ``draws``, a callable that returns the next draw for a shape, so that a
+    test can feed JAX's. An epoch's draws are asked for at once, one
+    ``(num_batches, *shape)`` each shape of ``sample_shapes(B)``; a
+    scoring call's one ``(n_chunks, *shape)`` each shape of
+    ``sample_shapes(1024)``. Each step's loss stays on the device, unread,
+    in ``losses``, for the caller."""
+
+    adj: object                   # scipy adjacency WITH self-loops
+    features: np.ndarray          # [N, F]
+    labels: np.ndarray            # [N] 0/1
+    idx_train: np.ndarray
+    idx_valid: np.ndarray
+    idx_test: np.ndarray
+    emb_dim: int = 64
+    batch_size: int = 150
+    num_batches: int = 50
+    num_epochs: int = 30
+    lr: float = 1e-3
+    seed: int = 0
+    initial_params: Optional[object] = None
+    draws: Optional[Callable[[tuple], object]] = None
+    device: DeviceLike = None
+
+    eval_batch = 1024
+    eval_seed = 0
+    rows_per_pass = 1 << 16   # chunks scored together (rows independent)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.table = NeighborTable.from_scipy(self.adj, device=self.device)
+        self.feats = torch.as_tensor(
+            np.asarray(self.features, np.float32)).to(self.device)
+        self.labels = np.asarray(self.labels)
+        self.generator = torch.Generator(self.device).manual_seed(self.seed)
+        self.model = self.make_model(
+            torch.Generator().manual_seed(self.seed)).to(self.device)
+        if self.initial_params is not None:
+            self.model.load_state_dict(
+                as_state_dict(self.initial_params, self.device))
+        self.optimizer = self.make_optimizer()
+        self.losses: list[torch.Tensor] = []
+
+    # the model's hooks -------------------------------------------------
+    def make_model(self, generator: torch.Generator) -> torch.nn.Module:
+        raise NotImplementedError
+
+    def make_optimizer(self) -> torch.optim.Optimizer:
+        raise NotImplementedError
+
+    def sample_shapes(self, b: int) -> list[tuple]:
+        """The shapes of one forward's draws over ``b`` rows."""
+        raise NotImplementedError
+
+    def loss(self, batch, y, us) -> torch.Tensor:
+        raise NotImplementedError
+
+    def probs(self, ids, us) -> torch.Tensor:
+        raise NotImplementedError
+
+    # -------------------------------------------------------------------
+    def draw(self, shape: tuple, generator: torch.Generator) -> torch.Tensor:
+        if self.draws is not None:
+            return torch.as_tensor(self.draws(shape),
+                                   dtype=torch.float32).to(self.device)
+        return torch.rand(shape, generator=generator, device=self.device)
+
+    def step(self, batch: torch.Tensor, y: Optional[torch.Tensor],
+             us: list) -> torch.Tensor:
+        """One step: forward, loss, backward, optimizer. Returns the loss,
+        detached and unread."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(batch, y, us)
+        loss.backward()
+        self.optimizer.step()
+        loss = loss.detach()
+        self.losses.append(loss)
+        return loss
+
+    def train_epoch(self, batches: torch.Tensor,
+                    ys: Optional[torch.Tensor]) -> torch.Tensor:
+        """Every batch of ``batches`` ([num_batches, B]) in turn, the
+        draws made at once; the last loss, unread."""
+        nb, b = batches.shape
+        us = [self.draw((nb, *s), self.generator)
+              for s in self.sample_shapes(b)]
+        for i in range(nb):
+            loss = self.step(batches[i], None if ys is None else ys[i],
+                             [u[i] for u in us])
+        return loss
+
+    @torch.no_grad()
+    def score_nodes(self, node_ids) -> np.ndarray:
+        """Scores of ``node_ids`` on the host at the model's weights."""
+        node_ids = np.asarray(node_ids)
+        n, bs = node_ids.shape[0], self.eval_batch
+        n_chunks = -(-n // bs)
+        padded = np.zeros(n_chunks * bs, np.int32)
+        padded[:n] = node_ids
+        ids = torch.from_numpy(padded).to(self.device)
+        gen = torch.Generator(self.device).manual_seed(self.eval_seed)
+        us = [self.draw((n_chunks, *s), gen).reshape(n_chunks * s[0],
+                                                     *s[1:])
+              for s in self.sample_shapes(bs)]
+        out = torch.empty(n_chunks * bs, device=self.device)
+        rows = max(self.rows_per_pass // bs, 1) * bs
+        per_row = [u.shape[0] // (n_chunks * bs) for u in us]
+        for r0 in range(0, n_chunks * bs, rows):
+            r1 = min(r0 + rows, n_chunks * bs)
+            out[r0:r1] = self.probs(ids[r0:r1], [
+                u[r0 * k: r1 * k] for u, k in zip(us, per_row)])
+        return out[:n].cpu().numpy()
+
+    def test_metrics(self) -> dict:
+        probs = self.score_nodes(self.idx_test)
+        y = self.labels[np.asarray(self.idx_test)]
+        return {"test_auc": roc_auc(y, probs),
+                "test_ap": average_precision(y, probs)}
+
+
+@dataclasses.dataclass
+class MiniBatchReconRun(_SampledRun):
+    """DOMINANT-mb, AnomalyDAE-mb and AEGIS-mb (``baselines.py:625-735``):
+    Adam, ``batch_size`` ids a step drawn from ``idx_train`` with
+    replacement by ``default_rng(seed)``, fanout 16; scoring draws from
+    seed 999. AEGIS-mb's ``[N, F]`` noise table is ``noise_table``, or a
+    standard normal draw of ``generator`` made before anything else (JAX
+    draws it from the first split of its key). Scoring pads each chunk
+    with node 0; AEGIS-mb scores one chunk a forward, since the pad rows
+    enter its BatchNorm statistics, as in JAX."""
+
+    name: str = "dominant-minibatch"
+    noise_table: Optional[object] = None
+
+    eval_seed = 999
+    fanout = 16
+
+    def __post_init__(self):
+        if self.name not in MINIBATCH_RECON:
+            raise ValueError(f"unknown minibatch reconstruction model "
+                             f"{self.name!r}")
+        super().__post_init__()
+        if self.name == "aegis-minibatch":
+            self.rows_per_pass = self.eval_batch
+            self.noise_table = (
+                torch.randn(self.feats.shape, generator=self.generator,
+                            device=self.device)
+                if self.noise_table is None else torch.as_tensor(
+                    self.noise_table, dtype=torch.float32).to(self.device))
+
+    def make_model(self, generator):
+        f = self.feats.shape[1]
+        if self.name == "aegis-minibatch":
+            return MiniBatchAEGIS(f, self.emb_dim, self.fanout,
+                                  generator=generator)
+        return MiniBatchRecon(
+            f, self.emb_dim, self.fanout,
+            pos_weighted=self.name == "anomalydae-minibatch",
+            generator=generator)
+
+    def make_optimizer(self):
+        return torch.optim.Adam(self.model.parameters(), lr=self.lr)
+
+    def sample_shapes(self, b):
+        return [(b, self.fanout)]
+
+    def loss(self, batch, y, us):
+        if self.name == "aegis-minibatch":
+            ld, lg = aegis_mb_losses(self.model(
+                self.feats, self.noise_table, self.table, batch, u=us[0]))
+            return ld + lg
+        x_rec = self.model(self.feats, self.table, batch, u=us[0])
+        return self.model.train_loss(x_rec, self.feats[batch])
+
+    def probs(self, ids, us):
+        if self.name == "aegis-minibatch":
+            return self.model(self.feats, self.noise_table, self.table, ids,
+                              u=us[0]).prob_real
+        x_rec = self.model(self.feats, self.table, ids, u=us[0])
+        return MiniBatchRecon.scores(x_rec, self.feats[ids])
+
+    def draw_batches(self, host_rng: np.random.Generator
+                     ) -> tuple[torch.Tensor, None]:
+        """An epoch's ``[num_batches, batch_size]`` ids (and no labels),
+        one numpy call a step as JAX makes them."""
+        pool = np.asarray(self.idx_train, np.int64)
+        ids = [host_rng.choice(pool, self.batch_size, replace=True)
+               for _ in range(self.num_batches)]
+        return torch.from_numpy(np.stack(ids).astype(np.int32)).to(
+            self.device), None
+
+    def train(self, verbose: bool = False) -> dict:
+        host_rng = np.random.default_rng(self.seed)
+        t0 = time.time()
+        for epoch in range(self.num_epochs):
+            loss = self.train_epoch(*self.draw_batches(host_rng))
+            if verbose and epoch % 5 == 0:
+                print(f"epoch {epoch}  loss {float(loss):.4f}")
+        return {**self.test_metrics(), "wall_time_s": time.time() - t0}
+
+
+@dataclasses.dataclass
+class MiniBatchClassifierRun(_SampledRun):
+    """GraphSAGE (cross-entropy, fanout 5) and PC-GNN (cross-entropy +
+    5·affinity margin, fanouts 16/8 a relation) (``baselines.py:738-872``):
+    AdamW (decoupled decay 0.007, as ``optax.adamw``); each step
+    ``batch_size`` normal ids and ``n_anom`` ids of the deduplicated
+    anomaly pool, drawn by ``default_rng(seed)``; validation at every
+    fifth epoch and the last, the best-AUROC weights scoring
+    ``idx_test``; scoring draws from seed 4321. ``relations``: one
+    adjacency a relation (each gets +I); without them PC-GNN shares one
+    table of ``adj`` over three relations."""
+
+    idx_anomaly: np.ndarray = None
+    name: str = "sage"
+    n_anom: int = 50
+    weight_decay: float = 0.007
+    relations: Optional[list] = None
+
+    eval_seed = 4321
+
+    def __post_init__(self):
+        if self.name not in MINIBATCH_CLASSIFIERS:
+            raise ValueError(f"unknown minibatch classifier {self.name!r}")
+        super().__post_init__()
+        if self.name == "pcgnn" and self.relations is None:
+            self.tables = [self.table] * self.model.n_relations   # shared
+        elif self.name == "pcgnn":
+            eye = sp.eye(self.adj.shape[0], format="csr", dtype=np.float32)
+            self.tables = [NeighborTable.from_scipy(r + eye,
+                                                    device=self.device)
+                           for r in self.relations]
+        labels, idx_train = self.labels, np.asarray(self.idx_train)
+        self._train_pool = idx_train[labels[idx_train] == 0].astype(np.int64)
+        self._anom_pool = np.unique(np.concatenate([
+            np.asarray(self.idx_anomaly), idx_train[labels[idx_train] == 1]
+        ]).astype(np.int64))
+
+    def make_model(self, generator):
+        f = self.feats.shape[1]
+        if self.name == "pcgnn":
+            n_rel = 3 if self.relations is None else len(self.relations)
+            return PCGNN(f, self.emb_dim, n_rel, generator=generator)
+        return GraphSAGEClassifier(f, self.emb_dim, fanout=5,
+                                   generator=generator)
+
+    def make_optimizer(self):
+        return torch.optim.AdamW(self.model.parameters(), lr=self.lr,
+                                 weight_decay=self.weight_decay)
+
+    def sample_shapes(self, b):
+        if self.name == "pcgnn":
+            m = self.model
+            return [(b, m.fanout1), (b * m.fanout1, m.fanout2)] \
+                * m.n_relations
+        return [(b, self.model.fanout)]
+
+    def _forward(self, ids, us):
+        if self.name == "pcgnn":
+            return self.model(self.feats, self.tables, ids,
+                              draws=list(zip(us[::2], us[1::2])))
+        return self.model(self.feats, self.table, ids, u=us[0])
+
+    def loss(self, batch, y, us):
+        out = self._forward(batch, us)
+        if self.name == "pcgnn":
+            return pcgnn_loss(out, y)[0]
+        return torch.nn.functional.cross_entropy(out, y.long())
+
+    def probs(self, ids, us):
+        out = self._forward(ids, us)
+        return pcgnn_prob(out) if self.name == "pcgnn" \
+            else torch.sigmoid(out[:, 1])
+
+    def draw_batches(self, host_rng: np.random.Generator
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """An epoch's ``[num_batches, batch_size + n_anom]`` ids and their
+        labels, the numpy calls of JAX's steps in JAX's order."""
+        replace = len(self._anom_pool) < self.n_anom
+        ids = np.stack([np.concatenate([
+            host_rng.choice(self._train_pool, self.batch_size, replace=True),
+            host_rng.choice(self._anom_pool, self.n_anom, replace=replace)])
+            for _ in range(self.num_batches)])
+        return (torch.from_numpy(ids.astype(np.int32)).to(self.device),
+                torch.from_numpy(self.labels[ids].astype(np.int32)).to(
+                    self.device))
+
+    def train(self, verbose: bool = False) -> dict:
+        host_rng = np.random.default_rng(self.seed)
+        best_auc, best = -1.0, None
+        y_valid = self.labels[np.asarray(self.idx_valid)]
+        t0 = time.time()
+        for epoch in range(self.num_epochs):
+            loss = self.train_epoch(*self.draw_batches(host_rng))
+            if epoch % 5 == 0 or epoch == self.num_epochs - 1:
+                auc = roc_auc(y_valid, self.score_nodes(self.idx_valid))
+                if auc > best_auc:
+                    best_auc = auc
+                    best = {k: v.detach().clone()
+                            for k, v in self.model.state_dict().items()}
+                if verbose:
+                    print(f"epoch {epoch}  val AUROC {auc:.4f}  "
+                          f"loss {float(loss):.4f}")
+        if best is not None:
+            self.model.load_state_dict(best)
+        return {"best_val_auc": best_auc, **self.test_metrics(),
+                "wall_time_s": time.time() - t0}
+
+
+def run_minibatch_recon(name, adj, features, labels, idx_train, idx_valid,
+                        idx_test, *, verbose: bool = False, **kw) -> dict:
+    """DOMINANT-mb, AnomalyDAE-mb or AEGIS-mb (``baselines.py:625-735``):
+    ``{"test_auc", "test_ap", "wall_time_s"}``. ``kw`` sets
+    :class:`MiniBatchReconRun`'s fields."""
+    return MiniBatchReconRun(adj, features, labels, idx_train, idx_valid,
+                             idx_test, name=name, **kw).train(verbose)
+
+
+def run_minibatch_classifier(name, adj, features, labels, idx_train,
+                             idx_anomaly, idx_valid, idx_test, *,
+                             verbose: bool = False, **kw) -> dict:
+    """GraphSAGE or PC-GNN (``baselines.py:738-872``): ``{"best_val_auc",
+    "test_auc", "test_ap", "wall_time_s"}``. ``kw`` sets
+    :class:`MiniBatchClassifierRun`'s fields."""
+    return MiniBatchClassifierRun(adj, features, labels, idx_train,
+                                  idx_valid, idx_test, name=name,
+                                  idx_anomaly=idx_anomaly, **kw
+                                  ).train(verbose)

@@ -197,10 +197,26 @@ def test_cli_aegis_faithful_flag(extra, capsys, monkeypatch):
 
 
 def test_run_baseline_rejects_unported_models():
+    """Every model of ``ggad_tpu``'s CLI is ported: only a name that no
+    package knows is refused."""
     args = type("A", (), dict(num_epoch=1, lr=None, seed=0, eval_every=1,
                               spmm_impl="coo", device="cpu"))()
-    with pytest.raises(ValueError, match="not ported"):
-        tb.run_baseline("pcgnn", synthetic_gad(**DS_KW), args)
+    with pytest.raises(ValueError, match="unknown model"):
+        tb.run_baseline("no-such-model", synthetic_gad(**DS_KW), args)
+
+
+def test_run_baseline_dispatches_pcgnn_with_jax_keys():
+    """``run_baseline("pcgnn", …)`` trains the minibatch classifier
+    (``baselines.py:573-575``) and returns JAX's record keys."""
+    args = type("A", (), dict(num_epoch=1, lr=None, seed=0, eval_every=1,
+                              spmm_impl="coo", device="cpu",
+                              checkpoint_dir=None))()
+    got = tb.run_baseline("pcgnn", synthetic_gad(**DS_KW), args)
+    want = jb.run_baseline("pcgnn", jax_synthetic_gad(**DS_KW), args)
+    assert set(got) == set(want)
+    assert got["model"] == "pcgnn" and got["dataset"] == want["dataset"]
+    assert all(np.isfinite(got[k]) for k in ("best_val_auc", "test_auc",
+                                             "test_ap"))
 
 
 def test_faithful_aegis_pretrain_accumulates_gradients():

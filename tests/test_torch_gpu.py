@@ -572,3 +572,130 @@ def test_tam_run_on_the_card_matches_the_cpu(cuda):
         for ep, losses in cpu.loss_history.items():
             np.testing.assert_allclose(card.loss_history[ep], losses,
                                        rtol=1e-4, atol=1e-4)
+
+
+class FixedDraws:
+    """A draw source that gives the same sequence of draws on every
+    device: each request is a fresh CPU draw of one seeded generator."""
+
+    def __init__(self, seed):
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def __call__(self, shape):
+        return torch.rand(shape, generator=self.gen)
+
+
+def mb_baseline_inputs():
+    import scipy.sparse as sp
+
+    from ggad_tpu_torch.datasets.splits import minibatch_split
+    from ggad_tpu_torch.datasets.synthetic import synthetic_gad
+
+    ds = synthetic_gad(n_nodes=3000, avg_degree=8, feat_dim=17,
+                       n_relations=3, seed=1)
+    adj = ds.adj + sp.eye(ds.n_nodes, format="csr", dtype=np.float32)
+    idx_train, idx_valid, idx_test, labels, idx_anom = minibatch_split(
+        ds.ano_labels, seed=0)
+    return ds, dict(adj=adj, features=ds.features, labels=labels,
+                    idx_train=idx_train, idx_valid=idx_valid,
+                    idx_test=idx_test)
+
+
+@pytest.mark.parametrize("name,relations", [
+    ("sage", False), ("pcgnn", False), ("pcgnn", True),
+    ("dominant-minibatch", False), ("anomalydae-minibatch", False),
+    ("aegis-minibatch", False)])
+def test_minibatch_baselines_on_the_card_match_the_cpu(cuda, name,
+                                                       relations):
+    """Three steps of each minibatch baseline from the same init, batch
+    ids, draws (and AEGIS-mb's noise table), then 1,000 scores: the card
+    within 1e-4 of the CPU, no hand-written kernel launched."""
+    from ggad_tpu_torch.datasets.splits import minibatch_split
+    from ggad_tpu_torch.train import baselines as tb
+
+    ds, inputs = mb_baseline_inputs()
+    kw = dict(emb_dim=64, num_batches=3)
+    if name in ("sage", "pcgnn"):
+        cls = tb.MiniBatchClassifierRun
+        kw.update(idx_anomaly=minibatch_split(ds.ano_labels, seed=0)[4],
+                  relations=ds.relations if relations else None)
+    else:
+        cls = tb.MiniBatchReconRun
+    k1, k2 = pb.bcsr_spmm.launches, pk2.bcsr_sddmm_colsum.launches
+    ids = np.random.default_rng(1).integers(0, 3000, 1000)
+    extra, res = {}, []
+    for device in (cuda, "cpu"):
+        run = cls(**inputs, name=name, draws=FixedDraws(0), device=device,
+                  **kw, **extra)
+        extra = dict(initial_params={k: v.clone() for k, v in
+                                     run.model.state_dict().items()})
+        if name == "aegis-minibatch":
+            extra["noise_table"] = run.noise_table
+        run.train_epoch(*run.draw_batches(np.random.default_rng(0)))
+        res.append((torch.stack(run.losses).cpu(), run.score_nodes(ids)))
+    torch.cuda.synchronize()
+    assert (pb.bcsr_spmm.launches, pk2.bcsr_sddmm_colsum.launches) == (k1, k2)
+    (card_losses, card_scores), (cpu_losses, cpu_scores) = res
+    torch.testing.assert_close(card_losses, cpu_losses, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card_scores, cpu_scores, rtol=1e-4, atol=1e-4)
+
+
+def test_exact_replay_on_the_card_matches_the_cpu(cuda):
+    """Three coupled-Adam steps of the exact set-union replay and its
+    150-node eval slices on the card against the CPU: 1e-4."""
+    from ggad_tpu_torch.models import sage_exact as px
+
+    ds, inputs = mb_baseline_inputs()
+    indptr, indices = px.replay_adjacency(ds.adj)
+    rng = np.random.default_rng(0)
+    batches = [(rng.choice(3000, 200, replace=False),
+                np.r_[np.zeros(150), np.ones(50)]) for _ in range(3)]
+    pads = px.exact_pads(indptr, indices, [b[0] for b in batches])
+    init = px.init_exact_params(17, 64, device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+    res = []
+    for device in (cuda, "cpu"):
+        params = {k: v.detach().to(device, copy=True).requires_grad_()
+                  for k, v in init.items()}
+        feats = torch.as_tensor(ds.features).to(device)
+        opt = torch.optim.Adam(params.values(), lr=1e-3, weight_decay=0.007)
+        losses = []
+        for nodes, labels in batches:
+            b = px.build_exact_batch(indptr, indices, nodes, labels, *pads,
+                                     device=device)
+            opt.zero_grad()
+            total, _ = px.exact_losses(params, feats, b)
+            total.backward()
+            opt.step()
+            losses.append(total.item())
+        res.append((losses, px.exact_score_nodes(
+            params, feats, indptr, indices, np.arange(400))))
+    np.testing.assert_allclose(res[0][0], res[1][0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(res[0][1], res[1][1], rtol=1e-4, atol=1e-4)
+
+
+def test_rwr_on_the_card_equals_the_cpu(cuda):
+    """The same draws give the same walk subgraphs and ``pick_step`` ids
+    on the card as on the CPU."""
+    from ggad_tpu_torch.sampler import rwr
+    from ggad_tpu_torch.sampler.neighbor import NeighborTable
+
+    _, inputs = mb_baseline_inputs()
+    gen = torch.Generator().manual_seed(0)
+    seeds = torch.randint(0, 3000, (500,), generator=gen, dtype=torch.int32)
+    u_step, u_restart = torch.rand(2, 12, 500, generator=gen)
+    idx = torch.as_tensor(inputs["idx_train"])
+    y = torch.as_tensor(inputs["labels"])[idx]
+    u = torch.rand(2000, generator=gen)
+    out = []
+    for device in (cuda, "cpu"):
+        table = NeighborTable.from_scipy(inputs["adj"], device=device)
+        nodes, mask = rwr.rwr_subgraphs(
+            table, seeds.to(device), subgraph_size=4,
+            u_step=u_step.to(device), u_restart=u_restart.to(device))
+        deg = table.degrees_of(idx.to(device))
+        picked = rwr.pick_step(idx.to(device), y.to(device), deg,
+                               u.to(device))
+        out.append([t.cpu() for t in (nodes, mask, picked)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
