@@ -87,6 +87,33 @@ Phases (any failure raises and the script exits non-zero):
      against the CPU's ELL (per-member losses, messages and scores within
      1e-4·(1 + |CPU|)); then 3 epochs on the elliptic-shaped graph under
      ``auto``, which must take the ELL route with K1 = K2 = 0;
+ 8b. the halo path (the multi-device slice) on the photo shape at n_h 300:
+     ``FullBatchTrainer(mesh=4)`` on the local communicator (4 shards on
+     the one card) for the dense, ring and sched wires in f32 and the
+     dense one in bf16, each ``prepare`` + 5 steps + an evaluation from
+     one init and one noise sequence, K1's and K2's counters set to 0
+     before each and read after (per shard: 2 K1 for the hoisted Â·x, 6
+     K1 and 1 K2 a step, 2 K1 an evaluation; K2 in f32 too); f32 losses
+     and scores within 1e-4·(1 + |ref|) of the single-device trainer, the
+     wires within 1e-5·(1 + |dense|) of each other, bf16 losses within
+     1e-3·(1 + |f32|) of f32 (the scores' difference printed), f32 and
+     bf16 each 2 steps + an evaluation within 1e-4·(1 + |CPU|) of the
+     same halo on the CPU (the plain versions); the photo shape
+     renumbered by ``reorder_lp`` (a boundary below the shard's rows) on
+     the sched wire in f32, 5 steps + an evaluation with exact counts
+     against the single-device trainer, its cut and the three wires'
+     widths printed; the plan's widths, wire rows
+     and bytes, each shard's tile counts, prepare time, held memory and
+     the step median beside the single-device step; every shard's rect
+     sets held against their plain versions at the path's widths (K1
+     forward at 745 and 300, transposed at 300, the margin subset's K2
+     and its two K1; after phase 9), shard 0's timed against the bound,
+     the plain version and ``torch.sparse.mm`` (``sampled_addmm``); the elliptic
+     shape at D 4 on the ELL route (3 steps + an evaluation against the
+     single-device trainer, K1 = K2 = 0); the ``"dist"`` communicator on
+     NCCL at world size 1 (a ``TCPStore`` on localhost) against the local
+     one at D 1 for 2 steps, with exact counts. NCCL at D > 1 needs more
+     than one card;
   9. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16: K1 at the photo serving shapes, on the transposed tile set
      and on the rectangular sets of the labeled-column subset, at the tile
@@ -105,7 +132,8 @@ Phases (any failure raises and the script exits non-zero):
      version and ``torch.sparse.mm``;
  10. profile a request and a train step of each precision, photo and
      ELL, a minibatch step, a step of each minibatch baseline and a step
-     of each baseline of the zoo: the device time
+     of each baseline of the zoo, and a halo step of each wire and
+     precision (photo, D 4) and of the elliptic shape: the device time
      against the wall time (the card's busy share), the device operations
      a call and the largest kernels; the photo step's kernels alone and the ELL step's table
      products alone; a TAM epoch and its parts (K1, the einsums, the ELL
@@ -182,6 +210,29 @@ TAM_TIMED = 10                                # timed ensemble epochs
 TAM_ROUTE_EPOCHS = 3                          # card BCSR vs card ELL
 TAM_CPU_MEMBERS, TAM_CPU_EPOCHS = 2, 2        # card BCSR vs CPU ELL
 TAM_ELL_EPOCHS = 3                            # elliptic-shaped TAM
+# the halo path (phase 8b): D shards of the photo shape on the card
+HALO_D = 4
+HALO_RUNS = (("dense", "float32"), ("ring", "float32"), ("sched", "float32"),
+             ("dense", "bfloat16"))
+HALO_STEPS = 5                                # steps a run, then one eval
+HALO_CPU_STEPS = 2                            # halo steps on the CPU
+HALO_ELL_STEPS = 3                            # elliptic-shaped halo steps
+HALO_NCCL_STEPS = 2                           # the "dist" mesh at D = 1
+HALO_LP_SCHEDULE = "sched"                    # the reorder_lp run's wire
+# K1 a shard: 2 for the hoisted Â·x (local + remote pair), 6 a step (gcn2
+# forward and backward on both pairs, the margin subset's backward), 2 an
+# evaluation; K2 a shard: 1 a step (the margin subset)
+HALO_K1 = {"prepare": 2, "step": 6, "eval": 2}
+HALO_K2_STEP = 1
+WIRE_TOL = 1e-5                               # the wires against each other
+BF16_TOL = 1e-3                               # bf16 vs f32 losses (the tests')
+# bf16 halo scores, card vs CPU at the same weights: bf16's unit roundoff.
+# The f32 inputs of a bf16 rounding differ in their last bits between the
+# card's and the CPU's dense products, so a few of gcn2's bf16 operands
+# round the other way, and each moves its neighbours' scores by up to
+# 2^-8·Â (a low-degree node's Â is near 1/2); a path in the wrong dtype
+# is off by the bf16-vs-f32 gap, several times this
+BF16_SCORE_TOL = 2.0 ** -8
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
 
@@ -299,14 +350,16 @@ def bound_ms(tiles, n_rows: int, dense_bytes: int, design_bytes: int,
             "design_bound_ms": design, "gather_mb": gather / 1e6}
 
 
-def k1_bound_ms(tiles, n: int, d: int, dtype: str) -> dict:
-    """K1: A's non-zeros, H (rounded to the tiles' type) and the f32
-    output each cross device memory once; a multiply-add per non-zero
-    and column of H. The CSR walk reads H in f32 and, for bf16 tiles,
-    writes and reads its bf16 copy."""
+def k1_bound_ms(tiles, n: int, d: int, dtype: str,
+                n_out: int | None = None) -> dict:
+    """K1: A's non-zeros, H (``[n, d]``, rounded to the tiles' type) and
+    the f32 output (``n_out`` rows, default n) each cross device memory
+    once; a multiply-add per non-zero and column of H. The CSR walk reads
+    H in f32 and, for bf16 tiles, writes and reads its bf16 copy."""
+    m = n if n_out is None else n_out
     copy = 0 if dtype == "float32" else 2 * n * d * 2
-    return bound_ms(tiles, n, n * d * (4 if dtype == "float32" else 2)
-                    + n * d * 4, n * d * 4 + copy + n * d * 4, d, dtype,
+    return bound_ms(tiles, m, n * d * (4 if dtype == "float32" else 2)
+                    + m * d * 4, n * d * 4 + copy + m * d * 4, d, dtype,
                     "K1")
 
 
@@ -341,13 +394,15 @@ def check_k1(tiles, h, dtype: str, *, n_out=None, timed: bool) -> dict:
     if not timed:
         return rec
     n, d = h.shape
-    rec["ms"], per, _ = device_ms(lambda: pb.bcsr_matmul(tiles, h))
-    rec["call_ms"] = cuda_ms(lambda: pb.bcsr_matmul(tiles, h), iters=20)
-    rec["plain_ms"] = cuda_ms(lambda: pb.bcsr_spmm_plain(tiles, h),
+    rec["ms"], per, _ = device_ms(lambda: pb.bcsr_matmul(tiles, h, n_out))
+    rec["call_ms"] = cuda_ms(lambda: pb.bcsr_matmul(tiles, h, n_out),
+                             iters=20)
+    rec["plain_ms"] = cuda_ms(lambda: pb.bcsr_spmm_plain(tiles, h, n_out),
                               iters=3, warmup=1)
-    rec.update(k1_bound_ms(tiles, n, d, dtype))
+    rec.update(k1_bound_ms(tiles, n, d, dtype, n_out))
     rec["gather_tb_s"] = rec["gather_mb"] / rec["ms"] / 1e3
-    rec["library_ms"], lib_err = library_spmm_ms(tiles, h, dtype, out)
+    rec["library_ms"], lib_err = library_spmm_ms(tiles, h, dtype, out,
+                                                 n_out)
     print(f"  device us per call by kernel: {json.dumps(per)}")
     print(f"  library (torch.sparse.mm, CSR) vs kernel max|d| {lib_err:.3g}")
     return rec
@@ -362,16 +417,18 @@ def tile_coo(tiles):
             tiles.tile_cols.long()[t] * 128 + c, v[t, r, c])
 
 
-def library_spmm_ms(tiles, h, dtype: str, out) -> tuple[float, float]:
+def library_spmm_ms(tiles, h, dtype: str, out,
+                    n_out: int | None = None) -> tuple[float, float]:
     """The same product in one library call: a CSR copy of the stored
-    (possibly bf16-rounded) values times H rounded as the kernel rounds
-    it. Timed as a yardstick; the port never calls it."""
+    (possibly bf16-rounded) values, ``[n_out × n]`` (default square),
+    times H rounded as the kernel rounds it. Timed as a yardstick; the
+    port never calls it."""
     import torch
 
     rows, cols, vals = tile_coo(tiles)
     n, d = h.shape
     csr = torch.sparse_coo_tensor(
-        torch.stack([rows, cols]), vals, (n, n),
+        torch.stack([rows, cols]), vals, (n if n_out is None else n_out, n),
         check_invariants=False).coalesce().to_sparse_csr()
     hl = h if dtype == "float32" else h.to(torch.bfloat16).float()
     ref = torch.sparse.mm(csr, hl)
@@ -2088,6 +2145,446 @@ def tam_kernel_checks(pair, k1: dict) -> None:
         *(r["max_abs_err"] for r in recs.values()))
 
 
+def halo_steps(tr, init, noises, timed: bool = False):
+    """``init`` loaded, a fresh Adam, one step a noise draw, then one
+    evaluation: (losses a step, the six fields; scores; step ms by CUDA
+    events when ``timed``)."""
+    import torch
+
+    tr.model.load_state_dict(init)
+    tr.optimizer = tr.make_optimizer()
+    out, ev = [], []
+    for noise in noises:
+        if timed:
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+        tr.optimizer.zero_grad(set_to_none=True)
+        losses = tr.compute_losses(noise)
+        losses.total.backward()
+        tr.optimizer.step()
+        out.append(torch.stack([t.detach() for t in losses]))
+    if timed:
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+        torch.cuda.synchronize()
+    losses = [[float(x) for x in t] for t in out]
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
+    return losses, tr.eval_scores(), ms
+
+
+def halo_step_fn(tr, noise):
+    def step():
+        tr.optimizer.zero_grad(set_to_none=True)
+        tr.compute_losses(noise).total.backward()
+        tr.optimizer.step()
+    return step
+
+
+def assert_close_rel(got, ref, tol: float, what: str) -> float:
+    """|got − ref| ≤ tol·(1 + |ref|) elementwise; returns max |got − ref|."""
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape or not np.all(np.isfinite(got)):
+        raise RuntimeError(f"{what}: shape {got.shape} vs {ref.shape} or "
+                           f"non-finite values")
+    diff = np.abs(got - ref)
+    if not np.all(diff <= tol * (1 + np.abs(ref))):
+        raise RuntimeError(f"{what}: max |d| {diff.max():.3g} over "
+                           f"{tol}·(1 + |ref|)")
+    return float(diff.max())
+
+
+def halo_layout_lines(tr) -> list:
+    """The plan's widths and wire volume, and each shard's tile sets."""
+    from ggad_tpu_torch.parallel.spmm_shard import halo_comm_stats
+
+    setup = tr._halo
+    plan, t, sub = setup.plan, setup.tiles, setup.aff_sub
+    stats = {d: halo_comm_stats(plan, d) for d in (tr.dataset.feat_dim, N_H)}
+    lines = [f"  plan: rows_per_shard {plan.rows_per_shard}, E_shard "
+             f"{setup.part.e_shard}, boundary B {plan.boundary}, wire rows "
+             f"{stats[N_H]['wire_rows']} a shard (buffer {plan.buf_width}, "
+             f"round widths {list(plan.dist_widths) or 'one all-to-all'}); "
+             f"SpMM halo bytes a shard {stats[tr.dataset.feat_dim]['spmm_halo_bytes']} "
+             f"at d {tr.dataset.feat_dim}, {stats[N_H]['spmm_halo_bytes']} at "
+             f"d {N_H} (all-gather {stats[N_H]['allgather_bytes']})"]
+    if t is not None:
+        lines.append(
+            f"  tiles (tile height {t.loc[0].tile_height}): local "
+            f"{[b.n_tiles for b in t.loc]} / transposed "
+            f"{[b.n_tiles for b in t.locT]}, remote {[b.n_tiles for b in t.fwd]}"
+            f" / transposed {[b.n_tiles for b in t.bwd]}; r_row_pad x "
+            f"r_col_pad {t.r_row_pad} x {t.r_col_pad}, w_row_pad x w_col_pad "
+            f"{t.w_row_pad} x {t.w_col_pad}; margin subset U {sub.n_uniq}, "
+            f"[R x U] {[b.n_tiles for b in sub.t_fwd]} / [U x R] "
+            f"{[b.n_tiles for b in sub.t_bwd]} tiles")
+    return lines
+
+
+def halo_rect_checks(tr, dtype: str, k1: dict, k2: dict) -> None:
+    """Each shard's rect sets held against their plain versions at the
+    main path's widths (K1 forward sets at the feature width for Â·x and
+    at n_h; transposed sets at n_h; the margin subset's K2 and its two
+    K1); shard 0's timed against the bound, the plain version and
+    ``torch.sparse.mm`` (``sampled_addmm`` for K2)."""
+    import torch
+
+    from ggad_tpu_torch.ops.sddmm import l2_normalize_rows
+
+    setup = tr._halo
+    t, sub, plan = setup.tiles, setup.aff_sub, setup.plan
+    R, W, F = plan.rows_per_shard, plan.buf_width, tr.dataset.feat_dim
+    cuda = tr.device
+    gen = torch.Generator(cuda).manual_seed(5)
+
+    def rand(n, d):
+        return torch.randn(n, d, device=cuda, generator=gen)
+
+    keep = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "design_bound_ms", "library_ms", "max_abs_err")
+    recs, errs = {}, []
+    for d in (F, N_H):
+        h, buf, g = rand(R, d), rand(W, d), rand(R, d)
+        sets = [("local", t.loc, h, R), ("remote", t.fwd, buf, R)]
+        if d == N_H:
+            sets += [("local transposed", t.locT, g, R),
+                     ("remote transposed", t.bwd, g, W)]
+        for name, per_shard, x, n_out in sets:
+            for i, tiles in enumerate(per_shard):
+                rec = check_k1(tiles, x, dtype, n_out=n_out, timed=i == 0)
+                errs.append(rec["max_abs_err"])
+                if i == 0:
+                    recs[f"{name} d{d}"] = {k: rec[k] for k in keep}
+                    print(f"K1 halo {name} {dtype} shard 0: T={tiles.n_tiles}"
+                          f" {tiles.n_rows}x{tiles.n_cols} d={d}: "
+                          f"{json.dumps(recs[f'{name} d{d}'])}")
+    U = sub.n_uniq
+    e = l2_normalize_rows(rand(R, N_H))
+    tgt = l2_normalize_rows(rand(U, N_H))
+    gu = rand(U, N_H)
+    k2_errs = []
+    for i in range(len(sub.t_bwd)):
+        timed = i == 0
+        r2 = check_k2(sub.t_bwd[i], tgt, e, dtype, timed=timed)
+        rb = check_k1(sub.t_bwd[i], e, dtype, n_out=U, timed=timed)
+        rf = check_k1(sub.t_fwd[i], gu, dtype, n_out=R, timed=timed)
+        k2_errs.append(r2["max_abs_err"])
+        errs += [rb["max_abs_err"], rf["max_abs_err"]]
+        if timed:
+            recs["subset [U x R] (K2 backward)"] = {k: rb[k] for k in keep}
+            recs["subset [R x U] (K2 backward)"] = {k: rf[k] for k in keep}
+            k2[dtype]["halo_rect"] = {k: r2[k] for k in keep}
+            print(f"K2 halo subset {dtype} shard 0: T={sub.t_bwd[0].n_tiles}"
+                  f" {sub.t_bwd[0].n_rows}x{sub.t_bwd[0].n_cols} U={U} "
+                  f"d={N_H}: {json.dumps(k2[dtype]['halo_rect'])}")
+            print(f"  its two K1 [U x R] / [R x U]: "
+                  f"{json.dumps(recs['subset [U x R] (K2 backward)'])} / "
+                  f"{json.dumps(recs['subset [R x U] (K2 backward)'])}")
+    k1[dtype]["halo_rect"] = recs
+    k1[dtype]["max_abs_err"] = max(k1[dtype]["max_abs_err"], *errs)
+    k2[dtype]["max_abs_err"] = max(k2[dtype]["max_abs_err"], *k2_errs)
+    print(f"halo rect sets {dtype}: {len(errs)} K1 and {len(k2_errs)} K2 "
+          f"checks on {len(t.loc)} shards, max|d| K1 {max(errs):.3g}, K2 "
+          f"{max(k2_errs):.3g}")
+
+
+def halo_nccl_check(ds, cuda, init, noises) -> None:
+    """The ``"dist"`` communicator on NCCL at world size 1 (a TCPStore
+    on localhost, rank 0) against the local one at D = 1: the one NCCL
+    run a single card allows."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ggad_tpu_torch.parallel.mesh import make_mesh
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", port, 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        res = {}
+        for comm in ("dist", "local"):
+            tr = FullBatchTrainer(
+                ds, embedding_dim=N_H, noise_mean=0.02, noise_std=0.01,
+                mesh=make_mesh(1, comm=comm, device=cuda), device=cuda)
+            res[comm] = halo_steps(tr, init, noises)[:2]
+            del tr
+    finally:
+        dist.destroy_process_group()
+    d1 = assert_close_rel(res["dist"][0], res["local"][0], LOSS_TOL,
+                          "NCCL D1 losses")
+    d2 = assert_close_rel(res["dist"][1], res["local"][1], SCORE_TOL,
+                          "NCCL D1 scores")
+    print(f"halo NCCL world size 1 vs local D1, {len(noises)} steps: "
+          f"losses max|d| {d1:.3g}, scores max|d| {d2:.3g}. NCCL at D > 1 "
+          f"is unverified: this machine has one card")
+
+
+def halo_partitioned_run(ds, cuda, init, noises, k1, k2, later,
+                         counts) -> None:
+    """The photo shape renumbered by ``reorder_lp`` (contiguous row
+    blocks a shard: a boundary below the shard's rows, the order users
+    train the halo in) over ``HALO_D`` shards on one wire in f32: the
+    three wires' widths, exact K1/K2 counts, losses and scores against
+    the single-device trainer on the same order."""
+    import numpy as np
+    import torch
+
+    from ggad_tpu_torch.datasets.partition import cut_fraction, reorder_lp
+    from ggad_tpu_torch.graph import from_scipy
+    from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+    from ggad_tpu_torch.ops.normalize import normalize_adj_reference
+    from ggad_tpu_torch.parallel.spmm_shard import (
+        build_halo_plan,
+        halo_comm_stats,
+        partition_edges,
+    )
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lp = reorder_lp(ds, HALO_D)
+    t_lp = time.perf_counter() - t0
+    blocks = np.arange(ds.n_nodes) // -(-ds.n_nodes // HALO_D)
+    adj, _ = normalize_adj_reference(from_scipy(lp.adj, device="cpu"))
+    part = partition_edges(adj, HALO_D)
+    wires = {s: build_halo_plan(part, s) for s in ("dense", "ring", "sched")}
+    print(f"halo photo D{HALO_D} after reorder_lp ({t_lp:.3f} s on the "
+          f"host): cut fraction {cut_fraction(ds.adj, blocks):.4f} -> "
+          f"{cut_fraction(lp.adj, blocks):.4f}; boundary B "
+          f"{wires['dense'].boundary} of {part.rows_per_shard} rows; wire "
+          f"rows a shard (buffer, round widths): " + "; ".join(
+              f"{s} {halo_comm_stats(p, N_H)['wire_rows']} ({p.buf_width}, "
+              f"{list(p.dist_widths) or 'one all-to-all'})"
+              for s, p in wires.items()))
+    kw = dict(embedding_dim=N_H, noise_mean=0.02, noise_std=0.01)
+    ref = FullBatchTrainer(lp, device=cuda, **kw)
+    r = halo_steps(ref, init, noises, timed=True)
+    del ref
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    tr = FullBatchTrainer(lp, mesh=HALO_D, dist_schedule=HALO_LP_SCHEDULE,
+                          device=cuda, **kw)
+    h = halo_steps(tr, init, noises, timed=True)
+    torch.cuda.synchronize()
+    n1, n2 = bcsr_spmm.launches, bcsr_sddmm_colsum.launches
+    if tr.route != "bcsr" or (n1, n2) != counts:
+        raise RuntimeError(f"halo reorder_lp: route {tr.route}, K1 {n1}, K2 "
+                           f"{n2}; expected bcsr, {counts}")
+    path = f"halo photo D{HALO_D} reorder_lp {HALO_LP_SCHEDULE}"
+    k1["float32"]["paths"][path] = n1
+    k2["float32"]["paths"][path] = n2
+    d = (assert_close_rel(h[0], r[0], LOSS_TOL, "reorder_lp halo losses"),
+         assert_close_rel(h[1], r[1], SCORE_TOL, "reorder_lp halo scores"))
+    print(f"halo photo D{HALO_D} reorder_lp {HALO_LP_SCHEDULE} float32: K1 "
+          f"{n1}, K2 {n2} launches; step ms median "
+          f"{statistics.median(h[2]):.3f} (single-device "
+          f"{statistics.median(r[2]):.3f}); vs single-device losses / "
+          f"scores max|d| {d[0]:.3g} / {d[1]:.3g} (tol {LOSS_TOL}·(1 + "
+          f"|ref|))")
+    for line in halo_layout_lines(tr):
+        print(line)
+    later.append(partial(busy_line,
+                         f"halo step D{HALO_D} reorder_lp {HALO_LP_SCHEDULE}",
+                         halo_step_fn(tr, noises[0]),
+                         statistics.median(h[2]), HALO_STEPS))
+    del tr
+
+
+def halo_phase(cuda, k1: dict, k2: dict, later: list) -> dict:
+    """The halo path: ``FullBatchTrainer(mesh=4)`` on the photo shape at
+    n_h 300 on the local communicator, each wire in f32 and the dense one
+    in bf16, from one init and one noise sequence: exact K1/K2 counts,
+    losses and scores against the single-device trainer, the wires
+    against each other, bf16 against f32, the card against the CPU; the
+    elliptic shape on the ELL route; the NCCL communicator at world size
+    1. Returns the dense wire's trainers by dtype, whose rect sets
+    ``halo_rect_checks`` times after the timed phases."""
+    import torch
+
+    import numpy as np
+
+    from ggad_tpu_torch.datasets.synthetic import photo_bench, synthetic_like
+    from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    t_phase = time.perf_counter()
+    ds = photo_bench()
+    kw = dict(embedding_dim=N_H, noise_mean=0.02, noise_std=0.01)
+    ref = FullBatchTrainer(ds, device=cuda, **kw)
+    init = ref.init()
+    gen = torch.Generator(cuda).manual_seed(7)
+    noises = [ref.draw_noise(gen) for _ in range(HALO_STEPS)]
+    ref_losses, ref_scores, ref_ms = halo_steps(ref, init, noises,
+                                                timed=True)
+    print(f"halo reference: single-device photo f32 ({ref.route}), "
+          f"{HALO_STEPS} steps, step ms {[round(x, 3) for x in ref_ms]} "
+          f"(median {statistics.median(ref_ms):.3f})")
+    del ref
+    kept, runs = {}, {}
+    n_k1 = HALO_D * (HALO_K1["prepare"] + HALO_STEPS * HALO_K1["step"]
+                     + HALO_K1["eval"])
+    n_k2 = HALO_D * HALO_STEPS * HALO_K2_STEP
+    for schedule, dtype in HALO_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+        t0 = time.perf_counter()
+        tr = FullBatchTrainer(ds, spmm_dtype=dtype, mesh=HALO_D,
+                              dist_schedule=schedule, device=cuda, **kw)
+        torch.cuda.synchronize()
+        prep = time.perf_counter() - t0
+        held = (torch.cuda.memory_allocated() - base) / 1e6
+        losses, scores, ms = halo_steps(tr, init, noises, timed=True)
+        torch.cuda.synchronize()
+        n1, n2 = bcsr_spmm.launches, bcsr_sddmm_colsum.launches
+        if tr.route != "bcsr" or (n1, n2) != (n_k1, n_k2):
+            raise RuntimeError(f"halo {schedule} {dtype}: route {tr.route}, "
+                               f"K1 {n1}, K2 {n2}; expected bcsr, {n_k1}, "
+                               f"{n_k2}")
+        path = f"halo photo D{HALO_D} {schedule}"
+        k1[dtype]["paths"][path] = n1
+        k2[dtype]["paths"][path] = n2
+        runs[schedule, dtype] = (losses, scores)
+        print(f"halo photo D{HALO_D} {schedule} {dtype}: prepare {prep:.3f} "
+              f"s, device memory held {held:.1f} MB; K1 {n1}, K2 {n2} "
+              f"launches ({HALO_STEPS} steps + an evaluation); step ms "
+              f"{[round(x, 3) for x in ms]} (median "
+              f"{statistics.median(ms):.3f}; single-device "
+              f"{statistics.median(ref_ms):.3f}); totals "
+              f"{[round(x[0], 6) for x in losses]}")
+        for line in halo_layout_lines(tr):
+            print(line)
+        later.append(partial(busy_line,
+                             f"halo step D{HALO_D} {schedule} {dtype}",
+                             halo_step_fn(tr, noises[0]),
+                             statistics.median(ms), HALO_STEPS))
+        if schedule == "dense":
+            kept[dtype] = tr
+        del tr
+    dense = runs["dense", "float32"]
+    d_ref = (assert_close_rel(dense[0], ref_losses, LOSS_TOL,
+                              "halo vs single-device losses"),
+             assert_close_rel(dense[1], ref_scores, SCORE_TOL,
+                              "halo vs single-device scores"))
+    d_wire = max(max(assert_close_rel(runs[s, "float32"][0], dense[0],
+                                      WIRE_TOL, f"{s} vs dense losses"),
+                     assert_close_rel(runs[s, "float32"][1], dense[1],
+                                      WIRE_TOL, f"{s} vs dense scores"))
+                 for s in ("ring", "sched"))
+    bf = runs["dense", "bfloat16"]
+    d_bf = assert_close_rel(bf[0], dense[0], BF16_TOL, "bf16 vs f32 losses")
+    bf_scores = abs(np.asarray(bf[1], np.float64) - dense[1])
+    print(f"halo checks: f32 vs single-device losses / scores max|d| "
+          f"{d_ref[0]:.3g} / {d_ref[1]:.3g} (tol {LOSS_TOL}·(1 + |ref|)); "
+          f"ring and sched vs dense {d_wire:.3g} (tol {WIRE_TOL}); bf16 vs "
+          f"f32 losses {d_bf:.3g} (tol {BF16_TOL}·(1 + |f32|)); bf16 vs "
+          f"f32 scores, a reading: max|d| {bf_scores.max():.3g}, max "
+          f"|d|/(1 + |f32|) "
+          f"{(bf_scores / (1 + np.abs(dense[1]))).max():.3g}")
+
+    # each dtype on the card against the same halo on the CPU (the plain
+    # versions: bf16 tiles and operands there too): the losses of the
+    # steps from one init; the f32 scores after them, the bf16 scores at
+    # the card's weights (Adam's first steps move each weight by ±lr
+    # whatever its gradient's size, so a bf16 gradient near 0 that
+    # changes sign parts the two runs' weights)
+    cpu_init = {k: v.cpu() for k, v in init.items()}
+    cpu_noises = [n.cpu() for n in noises[:HALO_CPU_STEPS]]
+    for dtype, tr in kept.items():
+        cpu = FullBatchTrainer(ds, spmm_dtype=dtype, mesh=HALO_D,
+                               device="cpu", **kw)
+        got = halo_steps(cpu, cpu_init, cpu_noises)
+        card = halo_steps(tr, init, noises[:HALO_CPU_STEPS])
+        d_loss = assert_close_rel(card[0], got[0], LOSS_TOL,
+                                  f"halo {dtype} card vs CPU losses")
+        if dtype == "float32":
+            d_score = assert_close_rel(card[1], got[1], SCORE_TOL,
+                                       f"halo {dtype} card vs CPU scores")
+            note = f"scores {d_score:.3g} (tol {SCORE_TOL}·(1 + |CPU|))"
+        else:
+            at_card = cpu.eval_scores({k: v.cpu()
+                                       for k, v in tr.params().items()})
+            d_score = assert_close_rel(card[1], at_card, BF16_SCORE_TOL,
+                                       f"halo {dtype} card vs CPU scores "
+                                       f"at the card's weights")
+            # the single-device bf16 trainer at the same weights: the
+            # same card-vs-CPU spread without the halo
+            single = [FullBatchTrainer(ds, spmm_dtype=dtype, device=dev,
+                                       **kw).eval_scores(
+                          {k: v.to(dev) for k, v in tr.params().items()})
+                      for dev in (cuda, "cpu")]
+            rel = lambda a, b: float((np.abs(a - b) / (1 + np.abs(b))).max())
+            note = (f"scores at the card's weights max|d| {d_score:.3g}, "
+                    f"max|d|/(1 + |CPU|) {rel(card[1], at_card):.3g} (tol "
+                    f"{BF16_SCORE_TOL}); readings: after each side's own "
+                    f"steps {rel(card[1], got[1]):.3g}, the single-device "
+                    f"bf16 trainer at the card's weights "
+                    f"{rel(*single):.3g}")
+        del cpu
+        print(f"halo {dtype} card vs CPU (the plain versions), "
+              f"{HALO_CPU_STEPS} steps + an evaluation: losses max|d| "
+              f"{d_loss:.3g} (tol {LOSS_TOL}·(1 + |CPU|)); {note}")
+
+    halo_partitioned_run(ds, cuda, init, noises, k1, k2, later, (n_k1, n_k2))
+
+
+    # the elliptic shape: the ELL route, no kernel of ours
+    gc.collect()
+    torch.cuda.empty_cache()
+    ell = synthetic_like("elliptic")
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    ref = FullBatchTrainer(ell, device=cuda, **kw)
+    e_init = ref.init()
+    e_noises = [ref.draw_noise(gen) for _ in range(HALO_ELL_STEPS)]
+    r = halo_steps(ref, e_init, e_noises, timed=True)
+    del ref
+    t0 = time.perf_counter()
+    tr = FullBatchTrainer(ell, mesh=HALO_D, device=cuda, **kw)
+    prep = time.perf_counter() - t0
+    h = halo_steps(tr, e_init, e_noises, timed=True)
+    n1, n2 = bcsr_spmm.launches, bcsr_sddmm_colsum.launches
+    if tr.route != "ell" or (n1, n2) != (0, 0):
+        raise RuntimeError(f"halo elliptic: route {tr.route}, K1 {n1}, K2 "
+                           f"{n2}; expected ell, 0, 0")
+    for rec in (*k1.values(), *k2.values()):
+        rec["paths"][f"halo elliptic D{HALO_D} (ELL)"] = 0
+    d_e = (assert_close_rel(h[0], r[0], LOSS_TOL, "ELL halo losses"),
+           assert_close_rel(h[1], r[1], SCORE_TOL, "ELL halo scores"))
+    print(f"halo elliptic D{HALO_D} (ELL, {ell.n_nodes} nodes): prepare "
+          f"{prep:.3f} s; K1 = K2 = 0; step ms median "
+          f"{statistics.median(h[2]):.3f} (single-device "
+          f"{statistics.median(r[2]):.3f}); vs single-device losses / "
+          f"scores max|d| {d_e[0]:.3g} / {d_e[1]:.3g}")
+    later.append(partial(busy_line, f"halo step D{HALO_D} elliptic (ELL)",
+                         halo_step_fn(tr, e_noises[0]),
+                         statistics.median(h[2]), HALO_ELL_STEPS))
+    del tr
+
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    halo_nccl_check(ds, cuda, init, noises[:HALO_NCCL_STEPS])
+    n1, n2 = bcsr_spmm.launches, bcsr_sddmm_colsum.launches
+    # two runs ("dist" and "local") of one shard each
+    e1 = 2 * (HALO_K1["prepare"] + HALO_NCCL_STEPS * HALO_K1["step"]
+              + HALO_K1["eval"])
+    e2 = 2 * HALO_NCCL_STEPS * HALO_K2_STEP
+    if (n1, n2) != (e1, e2):
+        raise RuntimeError(f"halo NCCL D1: K1 {n1}, K2 {n2}; expected {e1}, "
+                           f"{e2}")
+    print(f"halo NCCL D1 vs local D1: K1 {n1}, K2 {n2} launches (expected)")
+    k1["float32"]["paths"]["halo photo D1 NCCL vs local"] = n1
+    k2["float32"]["paths"]["halo photo D1 NCCL vs local"] = n2
+    print(f"halo phase {time.perf_counter() - t_phase:.1f} s")
+    return kept
+
+
 def kernel_record(name, source, replaces, rec) -> dict:
     paths = rec.get("paths", {})
     out = {"name": name, "route": "cuda", "source": source,
@@ -2099,7 +2596,7 @@ def kernel_record(name, source, replaces, rec) -> dict:
            "design_bound_ms": rec["design_bound_ms"],
            "gather_mb": rec["gather_mb"], "gather_tb_s": rec["gather_tb_s"],
            "library_ms": rec["library_ms"]}
-    for key in ("at_d745", "tam_blockdiag"):
+    for key in ("at_d745", "tam_blockdiag", "halo_rect"):
         if key in rec:
             out[key] = rec[key]
     if "tile_rows_sweep" in rec:
@@ -2142,8 +2639,12 @@ def main() -> int:
     del mb
     zoo_phase(cuda, k1, k2, later)
     tam_pair = tam_phase(cuda, k1, k2, later)
+    halo = halo_phase(cuda, k1, k2, later)
     kernel_phase(cuda, k1, k2)
     tam_kernel_checks(tam_pair, k1)
+    for dtype, tr in halo.items():
+        halo_rect_checks(tr, dtype, k1, k2)
+    del halo
     for line in later:
         print(line())
 

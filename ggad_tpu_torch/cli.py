@@ -14,8 +14,12 @@ config whose list-valued keys expand to a grid (``--multi_run`` runs all
 of it and aggregates). All run on the card unless ``--device cpu`` is
 given. ``--spmm_impl`` picks the full-batch sparse route (``auto``: BCSR
 tiles on a tile-dense graph, ELL tables on a tile-sparse one) and
-``--reorder`` RCM-renumbers the nodes first. The last line of the output
-is one JSON record.
+``--reorder`` RCM-renumbers the nodes first. ``--mesh_devices D`` trains
+full-batch GGAD over D shards on the halo exchange (``--dist_schedule``
+picks its wire): in one process, D shards on one device, or under
+``torchrun`` (``WORLD_SIZE`` set) one shard a rank, on ``cuda:LOCAL_RANK``
+over NCCL (gloo with ``--device cpu``). The last line of the output is
+one JSON record (rank 0's under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -83,6 +87,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "normals + active contamination, "
                         "utils_tam.py:159-178); --no-tam_split keeps the "
                         "GGAD split the dataset ships with")
+    p.add_argument("--mesh_devices", type=int, default=None,
+                   help="shard count for full-batch ggad over the halo "
+                        "exchange (under torchrun: the world size)")
+    p.add_argument("--dist_impl", type=str, default="halo",
+                   choices=["halo", "gspmd"],
+                   help="multi-device schedule for --mesh_devices (gspmd "
+                        "is not ported yet)")
+    p.add_argument("--dist_schedule", type=str, default="dense",
+                   choices=["dense", "ring", "sched"],
+                   help="halo wire schedule: dense = one all-to-all "
+                        "(global-max padding), ring = per-distance-padded "
+                        "permutation rounds, sched = matched rounds "
+                        "(max-weight matchings; ring pairing when they "
+                        "ship no fewer rows)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' runs on the "
                         "host)")
@@ -97,6 +115,11 @@ def main(argv=None) -> int:
         raise SystemExit("--score_only serves --model ggad only")
     if args.score_only and not args.checkpoint_dir:
         raise SystemExit("--score_only requires --checkpoint_dir")
+    if args.dist_schedule != "dense" and args.dist_impl == "gspmd":
+        # the wire schedule applies to the halo path only
+        raise SystemExit(
+            f"--dist_schedule {args.dist_schedule} only applies to "
+            f"--dist_impl halo (gspmd lets XLA choose the collectives)")
 
     from ggad_tpu_torch.datasets.loaders import load_dataset
 
@@ -147,7 +170,9 @@ def train(args, ds) -> int:
     from ggad_tpu_torch.utils.logging import JsonlLogger
 
     preset = preset_for(args.dataset)
-    logger = JsonlLogger(args.log_jsonl) if args.log_jsonl else None
+    mesh, device, rank = dist_mesh(args)
+    logger = (JsonlLogger(args.log_jsonl) if args.log_jsonl and rank == 0
+              else None)
     built = []
 
     def make_trainer():
@@ -168,21 +193,65 @@ def train(args, ds) -> int:
             scan_steps=args.scan_steps,
             checkpoint_dir=args.checkpoint_dir,
             logger=logger.log if logger else None,
-            device=args.device,
+            device=device,
+            mesh=mesh,
+            dist_impl=args.dist_impl,
+            dist_schedule=args.dist_schedule,
         ))
         return built[-1]
 
     try:
         res = train_with_retries(make_trainer, retries=args.retries,
-                                 verbose=True)
+                                 verbose=rank == 0)
     finally:
         if logger is not None:
             logger.close()
-    print(json.dumps({"dataset": ds.name, "model": "ggad",
-                      "spmm_route": built[-1].route,
-                      "auc": res.final_auc, "ap": res.final_ap,
-                      "wall_time_s": res.wall_time_s}))
+        if mesh is not None and not isinstance(mesh, int):
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps({"dataset": ds.name, "model": "ggad",
+                          "spmm_route": built[-1].route,
+                          "n_shards": args.mesh_devices or 1,
+                          "auc": res.final_auc, "ap": res.final_ap,
+                          "wall_time_s": res.wall_time_s}))
     return 0
+
+
+def dist_mesh(args):
+    """(mesh, device, rank) of a full-batch run: ``--mesh_devices`` as a
+    shard count in one process, or, under ``torchrun``, the ``"dist"``
+    communicator of this rank (NCCL on ``cuda:LOCAL_RANK``, gloo with
+    ``--device cpu``)."""
+    import os
+
+    if "WORLD_SIZE" not in os.environ or args.mesh_devices is None:
+        return args.mesh_devices, args.device, 0
+    import torch
+    import torch.distributed as dist
+
+    from ggad_tpu_torch.parallel.mesh import make_mesh
+
+    world = int(os.environ["WORLD_SIZE"])
+    if args.retries:
+        # a retry would rebuild one rank's trainer while the others wait
+        # in a collective: restart the whole job, which resumes from
+        # --checkpoint_dir
+        raise SystemExit("--retries is not supported under torchrun: "
+                         "restart the job to resume from --checkpoint_dir")
+    if args.mesh_devices != world:
+        raise SystemExit(f"--mesh_devices {args.mesh_devices} under "
+                         f"torchrun needs {args.mesh_devices} ranks, not "
+                         f"{world}")
+    if args.device == "cpu":
+        device, backend = torch.device("cpu"), "gloo"
+    else:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    dist.init_process_group(backend)
+    return (make_mesh(world, comm="dist", device=device), device,
+            dist.get_rank())
 
 
 def run_from_config(args) -> int:

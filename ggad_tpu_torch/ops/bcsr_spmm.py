@@ -490,4 +490,29 @@ def bcsr_spmm(pair: BCSRPair, h: torch.Tensor) -> torch.Tensor:
     return _BCSRSpMM.apply(h, pair)
 
 
+class _BCSRSpMMRect(torch.autograd.Function):
+    """K1 forward on ``pair.fwd``, K1 backward on ``pair.bwd``, for a
+    rectangular pair (``pallas_spmm.py:254-281``)."""
+
+    @staticmethod
+    def forward(ctx, buf, pair, n_out):
+        ctx.pair, ctx.n_buf = pair, buf.shape[0]
+        return bcsr_matmul(pair.fwd, buf, n_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (bcsr_matmul(ctx.pair.bwd, g.float().contiguous(), ctx.n_buf),
+                None, None)
+
+
+def bcsr_spmm_rect(pair: BCSRPair, buf: torch.Tensor,
+                   n_out: int) -> torch.Tensor:
+    """out = (M @ buf)[:n_out] for a rectangular pair (fwd ``[n_rows ×
+    n_cols]``, bwd its transpose); ``buf`` is ``[≤ n_cols, d]`` f32, out
+    ``[n_out, d]`` f32. Differentiable in ``buf`` through the transposed
+    set. The halo-sharded SpMM runs it on each shard's local and remote
+    pairs. Counts into ``bcsr_spmm.launches``."""
+    return _BCSRSpMMRect.apply(buf.contiguous(), pair, n_out)
+
+
 bcsr_spmm.launches = 0

@@ -16,6 +16,15 @@ margin's affinity with K2 on the rectangular tiles of raw_adj[:, labeled]
 and its backward with two more K1 launches. On a tile-sparse graph (the
 ELL route) gcn2, the seed aggregation and the margin's affinity run on
 sigma tables in plain PyTorch and launch neither kernel.
+
+With ``mesh`` (a shard count D or a ``parallel.mesh`` communicator) the
+trainer runs the halo-partitioned path of ``parallel.halo_trainer``
+instead: the same model, optimizer, ``train()``, ``evaluate()`` and
+checkpoints, with the forward, the losses and the scores computed over D
+shards. On the BCSR route an f32 or bf16 step launches, per shard, K1 six
+times (gcn2 forward and backward on the local and remote rect pairs, the
+margin subset's backward) and K2 once (the margin subset); an evaluation
+launches K1 twice a shard.
 """
 
 from __future__ import annotations
@@ -155,6 +164,10 @@ class FullBatchTrainer:
     initial_params: Optional[Any] = None   # flax tree or state_dict
     hoist_ax: bool = True          # precompute Â@x once (Â(xW₁)=(Âx)W₁)
     device: DeviceLike = None
+    mesh: Optional[Any] = None     # shard count D or a parallel.mesh
+                                   # communicator → the halo path
+    dist_impl: str = "halo"        # "gspmd" is not ported yet
+    dist_schedule: str = "dense"   # halo wire: "dense", "ring", "sched"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -169,6 +182,12 @@ class FullBatchTrainer:
             self.noise_mean = preset.noise_mean
         if self.noise_std is None:
             self.noise_std = preset.noise_std
+        self._halo = None
+        # made at the first step: building a torch optimizer imports
+        # torch._dynamo (seconds), which serving never needs
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        if self.mesh is not None:
+            return self._post_init_halo()
 
         adj, self.raw_adj = normalize_adj_reference(
             from_scipy(ds.adj, device=self.device))
@@ -191,9 +210,37 @@ class FullBatchTrainer:
         self.ax = (spmm(self.adj, self.features, impl="coo")
                    if self.hoist_ax else None)
         self.model = GGAD(ds.feat_dim, self.embedding_dim).to(self.device)
-        # made at the first step: building a torch optimizer imports
-        # torch._dynamo (seconds), which serving never needs
-        self.optimizer: Optional[torch.optim.Optimizer] = None
+
+    def _post_init_halo(self) -> None:
+        """``mesh`` set: the halo-partitioned path
+        (``full_batch.py:258-330``). ``prepare_halo`` builds every shard
+        structure, training's included, at once, and always hoists Â·x
+        (as JAX's halo does); ``route`` is the per-shard product's (BCSR,
+        or ELL past the tile budget)."""
+        from ggad_tpu_torch.parallel.halo_trainer import prepare_halo
+        from ggad_tpu_torch.parallel.mesh import make_mesh
+
+        if self.dist_impl == "gspmd":
+            raise NotImplementedError(
+                "dist_impl='gspmd' (the GSPMD path, ggad_tpu/parallel/"
+                "full_batch.py) is not ported yet: ROADMAP item 5b")
+        if self.dist_impl != "halo":
+            raise ValueError(f"dist_impl must be 'halo' or 'gspmd', got "
+                             f"{self.dist_impl!r}")
+        if isinstance(self.mesh, int):
+            self.mesh = make_mesh(self.mesh, comm="local",
+                                  device=self.device)
+        self.device = self.mesh.device
+        ds = self.dataset
+        self._halo = prepare_halo(ds, self.mesh, spmm_impl=self.spmm_impl,
+                                  spmm_dtype=self.spmm_dtype,
+                                  schedule=self.dist_schedule)
+        self.route = self._halo.route
+        self.adj = self.raw_adj = self.features = self.ax = None
+        self.seed_adj = self.aff_sub = None
+        self.seed_idx = self._halo.seed_idx.idx
+        self.normal_idx = self._halo.normal_idx.idx
+        self.model = GGAD(ds.feat_dim, self.embedding_dim).to(self.device)
 
     # ------------------------------------------------------------------
     def prepare_training(self) -> None:
@@ -204,8 +251,9 @@ class FullBatchTrainer:
         the subset is edge-parallel in f32 and K2 on rectangular tiles in
         bf16; on the ELL route it is rectangular sigma tables in both, and
         the seed subgraph gets its own (``[S × N]`` forward, ``[N × S]``
-        backward). raw_adj itself needs no tiles or tables."""
-        if self.aff_sub is not None:
+        backward). raw_adj itself needs no tiles or tables. The halo path
+        builds all of it in ``prepare_halo``."""
+        if self.aff_sub is not None or self._halo is not None:
             return
         ds = self.dataset
         graph = self.adj
@@ -278,6 +326,11 @@ class FullBatchTrainer:
     def compute_losses(self, noise: torch.Tensor) -> GGADLosses:
         """Train-branch forward and the three-term loss at the model's
         current parameters, with autograd recording."""
+        if self._halo is not None:
+            return self._halo.losses(
+                dict(self.model.named_parameters()), noise, self.mesh,
+                confidence_margin=self.confidence_margin,
+                pos_weight=self.pos_weight)
         self.prepare_training()
         out = self.model(self.adj, self.features, self.seed_idx,
                          self.normal_idx, train=True, seed_adj=self.seed_adj,
@@ -305,6 +358,10 @@ class FullBatchTrainer:
         given, are loaded into the trainer's model first."""
         if params is not None:
             self.model.load_state_dict(params)
+        if self._halo is not None:
+            scores = self._halo.scores(dict(self.model.named_parameters()),
+                                       self.mesh)
+            return scores[:self.dataset.n_nodes]
         out = self.model(self.adj, self.features, train=False, ax=self.ax)
         return out.logits[:, 0]
 
@@ -403,10 +460,16 @@ class FullBatchTrainer:
                 if self.logger is not None:
                     self.logger(rec)
             if ckpt is not None and (epoch % self.eval_every == 0 or last):
-                ckpt.save(epoch, {"params": self.params(),
-                                  "opt_state": self.optimizer.state_dict(),
-                                  "rng": generator.get_state(),
-                                  "epoch": epoch})
+                # the state is replicated: under the "dist" communicator
+                # rank 0 alone writes and prunes the shared directory,
+                # and no rank goes on until it has
+                if getattr(self.mesh, "rank", 0) == 0:
+                    ckpt.save(epoch, {
+                        "params": self.params(),
+                        "opt_state": self.optimizer.state_dict(),
+                        "rng": generator.get_state(), "epoch": epoch})
+                if self.mesh is not None:
+                    self.mesh.barrier()
             epoch += 1
 
         wall = time.time() - t0

@@ -699,3 +699,111 @@ def test_rwr_on_the_card_equals_the_cpu(cuda):
         out.append([t.cpu() for t in (nodes, mask, picked)])
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+def halo_pair(device, D=4, schedule="ring", dtype="float32"):
+    """The halo structures of one seeded graph on ``device``, built on
+    the host and placed (the same host build for the card and the CPU)."""
+    from ggad_tpu_torch.graph import add_self_loops, from_scipy
+    from ggad_tpu_torch.parallel import spmm_shard as ss
+    from ggad_tpu_torch.parallel.mesh import make_mesh
+
+    import scipy.sparse as sp
+
+    mat = sp.random(900, 900, density=0.02, format="csr", dtype=np.float32,
+                    random_state=np.random.RandomState(2))
+    g = add_self_loops(from_scipy(sp.csr_matrix(mat + mat.T), device="cpu"))
+    mesh = make_mesh(D, device=device)
+    part = ss.partition_edges(g, D)
+    plan = ss.build_halo_plan(part, schedule)
+    idx = np.random.default_rng(0).choice(900, 200, replace=False)
+    return dict(
+        mesh=mesh, part=ss.place_partition(part, mesh),
+        plan=ss.place_halo_plan(plan, mesh),
+        tiles=ss.place_halo_bcsr(ss.build_halo_bcsr(part, plan, dtype=dtype),
+                                 mesh),
+        sub=ss.place_halo_affinity_subset(
+            ss.build_halo_affinity_subset(part, idx, tiles_dtype=dtype),
+            mesh),
+        ells=ss.place_halo_ell(ss.build_halo_ell(part, plan), mesh),
+        x=ss.place_nodes(ss.pad_nodes(torch.from_numpy(
+            np.random.default_rng(1).normal(size=(900, 40))
+            .astype(np.float32)), part), mesh))
+
+
+HALO_LAUNCHES = {"spmm_halo_bcsr": (4, 0), "affinity_halo_bcsr": (4, 2),
+                 "affinity_halo_subset": (2, 1)}   # (K1, K2) a shard, fwd + bwd
+
+
+@pytest.mark.parametrize("op,dtype", [
+    *((op, dt) for op in HALO_LAUNCHES for dt in ("float32", "bfloat16")),
+    ("spmm_halo_ell", "float32"), ("spmm_halo", "float32"),
+    ("affinity_halo", "float32")])
+def test_halo_ops_on_the_card_match_the_cpu(cuda, op, dtype):
+    """Each halo op and its input gradient on the card (K1/K2 on each
+    shard's rect tiles, counted exactly) against the plain versions on
+    the CPU: f32 1e-5 values and 1e-4 gradients, bf16 1e-4."""
+    from ggad_tpu_torch.parallel import spmm_shard as ss
+
+    calls = {
+        "spmm_halo_bcsr": lambda s, h: ss.spmm_halo_bcsr(
+            s["part"], s["plan"], s["tiles"], h, s["mesh"]),
+        "affinity_halo_bcsr": lambda s, h: ss.affinity_halo_bcsr(
+            s["part"], s["plan"], s["tiles"], h, s["mesh"]),
+        "affinity_halo_subset": lambda s, h: ss.affinity_halo_subset(
+            s["plan"], s["sub"], h, s["mesh"]),
+        "spmm_halo_ell": lambda s, h: ss.spmm_halo_ell(
+            s["part"], s["plan"], s["ells"], h, s["mesh"]),
+        "spmm_halo": lambda s, h: ss.spmm_halo(s["part"], s["plan"], h,
+                                               s["mesh"]),
+        "affinity_halo": lambda s, h: ss.affinity_halo(s["part"], s["plan"],
+                                                       h, s["mesh"])}
+    res = []
+    for device in (cuda, "cpu"):
+        s = halo_pair(device, dtype=dtype)
+        h = s["x"].clone().requires_grad_(True)
+        before = (pb.bcsr_spmm.launches, pk2.bcsr_sddmm_colsum.launches)
+        out = calls[op](s, h)
+        torch.sin(out).sum().backward()
+        res.append((out.detach().cpu(), h.grad.cpu()))
+        if device is cuda:
+            k1, k2 = HALO_LAUNCHES.get(op, (0, 0))
+            assert (pb.bcsr_spmm.launches - before[0],
+                    pk2.bcsr_sddmm_colsum.launches - before[1]) == (4 * k1,
+                                                                   4 * k2)
+    tol = (1e-5, 1e-4) if dtype == "float32" else (1e-4, 1e-4)
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=tol[0],
+                               atol=tol[0])
+    torch.testing.assert_close(res[0][1], res[1][1], rtol=tol[1],
+                               atol=tol[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_halo_train_step_on_the_card_matches_the_cpu(cuda, dtype):
+    """Two steps and an evaluation of ``FullBatchTrainer(mesh=4)`` on the
+    BCSR route: per step 6 K1 and 1 K2 a shard on the card; losses and
+    scores against the CPU within 1e-4·(1 + |CPU|)."""
+    from ggad_tpu_torch.datasets.synthetic import synthetic_gad
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    ds = synthetic_gad(n_nodes=900, avg_degree=10, feat_dim=24,
+                       n_communities=3, seed=4)
+    res = {}
+    for device in (cuda, "cpu"):
+        tr = FullBatchTrainer(ds, embedding_dim=48, spmm_impl="bcsr",
+                              spmm_dtype=dtype, mesh=4, noise_mean=0.02,
+                              noise_std=0.0, device=device)
+        assert tr.route == "bcsr"
+        tr.model.load_state_dict(tr.init())
+        gen = torch.Generator(tr.device).manual_seed(0)
+        before = (pb.bcsr_spmm.launches, pk2.bcsr_sddmm_colsum.launches)
+        losses = [[float(x) for x in tr.train_step(gen)] for _ in range(2)]
+        scores = tr.eval_scores()
+        if device is cuda:
+            assert (pb.bcsr_spmm.launches - before[0],
+                    pk2.bcsr_sddmm_colsum.launches - before[1]) == (
+                        2 * 4 * 6 + 4 * 2, 2 * 4)
+        res[str(device)] = (np.array(losses), scores)
+    card, cpu = res[str(cuda)], res["cpu"]
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-4, atol=1e-4)

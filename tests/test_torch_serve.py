@@ -22,6 +22,7 @@ import ggad_tpu_torch
 from ggad_tpu_torch.cli import main as cli_main
 from ggad_tpu_torch.datasets.synthetic import synthetic_gad
 from ggad_tpu_torch.interop import params_from_flax
+from ggad_tpu_torch.parallel.mesh import make_mesh
 from ggad_tpu_torch.serve import Scorer, score_dataset
 from ggad_tpu_torch.train.checkpoint import Checkpointer
 from ggad_tpu_torch.train.full_batch import FullBatchTrainer, maybe_bcsr
@@ -214,6 +215,10 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError):
         FullBatchTrainer(ds, embedding_dim=N_H)
     with pytest.raises(RuntimeError):
+        FullBatchTrainer(ds, embedding_dim=N_H, mesh=2)
+    with pytest.raises(RuntimeError):
+        make_mesh(2)
+    with pytest.raises(RuntimeError):
         score_dataset(str(tmp_path), ds, embedding_dim=N_H)
     with pytest.raises(RuntimeError):
         ggad_tpu_torch.from_scipy(ds.adj)
@@ -238,7 +243,7 @@ for name in names:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m == "ggad_tpu" or m.startswith("ggad_tpu.")]
 assert not bad, bad
-print(len(names))
+print("\n".join(names))
 """
 
 
@@ -246,4 +251,9 @@ def test_port_imports_neither_jax_nor_ggad_tpu():
     proc = subprocess.run([sys.executable, "-c", ISOLATION], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 49     # every module was imported
+    names = proc.stdout.split()
+    assert len(names) >= 54     # every module was imported
+    assert {"ggad_tpu_torch.parallel.mesh",
+            "ggad_tpu_torch.parallel.spmm_shard",
+            "ggad_tpu_torch.parallel.halo_trainer",
+            "ggad_tpu_torch.datasets.partition"} <= set(names)
