@@ -61,7 +61,17 @@ Phases (any failure raises and the script exits non-zero):
      validation scores in 150-node slices against the CPU; ``rwr_subgraphs``
      (4,096 seeds, size 4, walk 12) and ``pick_step`` (4,096 ids), card
      equal to the CPU from the same draws;
-  7. the full-batch baseline zoo on the photo-shaped graph at n_h 300
+  6c. data-parallel minibatch GGAD on phase 6's graph (before it is
+     freed): ``MiniBatchTrainer(mesh=4)`` on the local communicator at
+     phase 6's width (batch 150 + 50, 50 ids a shard, eval_batch 1024)
+     beside the single-device trainer: the device memory each holds (the
+     tables once: within 10%), 3 steps from the same weights, batches and
+     draws (losses within 1e-4·(1 + |ref|)) and 4,096 scores (within
+     1e-5·(1 + |ref|)), step medians side by side (CUDA events), one
+     epoch cut to 20 batches, the peak memory of the steps; K1 = K2 = 0;
+     then the ``"dist"`` communicator on NCCL at world size 1 against the
+     local one at D 1 for 2 steps;
+ 7. the full-batch baseline zoo on the photo-shaped graph at n_h 300
      (GAAN at its fixed noise 16 and hid 64): DOMINANT, AnomalyDAE,
      OCGNN, GAAN and AEGIS in both modes through their runners
      (``train.baselines.run_*``) for 5 epochs (AEGIS after 3 pretrain
@@ -114,7 +124,24 @@ Phases (any failure raises and the script exits non-zero):
      NCCL at world size 1 (a ``TCPStore`` on localhost) against the local
      one at D 1 for 2 steps, with exact counts. NCCL at D > 1 needs more
      than one card;
-  9. hold each kernel against its plain PyTorch version on the card, in f32
+  8c. the rest of the multi-device slice on the photo shape at n_h 300:
+     ``FullBatchTrainer(mesh=4, dist_impl="gspmd")`` (the all-gather
+     layout, K1 = K2 = 0), 5 steps + an evaluation against the
+     single-device trainer on the COO route from the same weights and
+     noise (the 5 steps' losses and the scores at the reference's weights
+     within 1e-4·(1 + |ref|); the scores after each side's own 1 and 5
+     steps, and the single-device BCSR-vs-COO spread after 5, printed as
+     readings), its step median
+     beside the single-device COO and BCSR steps, prepare time, held and
+     peak memory; 2 steps of 2-D tensor parallelism on a (2, 2)
+     ``('nodes', 'model')`` mesh against the 1-D GSPMD step at D 4 (losses
+     within 1e-4 relative), both timed; ``entry.entry()``'s forward,
+     finite; ``entry.dryrun_multichip(4)`` with all its assertions, its
+     halo BCSR leg launching exactly 4 × (2 + 6) K1 and 4 K2 and every
+     other leg none; the CLI's ``--model ggad-minibatch --dp_devices 4``
+     and ``--mesh_devices 4 --dist_impl gspmd`` on the card, their last
+     JSON lines parsed;
+ 9. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16: K1 at the photo serving shapes, on the transposed tile set
      and on the rectangular sets of the labeled-column subset, at the tile
      heights 128, 256, 512 and 1024 (the sweep of
@@ -132,13 +159,14 @@ Phases (any failure raises and the script exits non-zero):
      version and ``torch.sparse.mm``;
  10. profile a request and a train step of each precision, photo and
      ELL, a minibatch step, a step of each minibatch baseline and a step
-     of each baseline of the zoo, and a halo step of each wire and
-     precision (photo, D 4) and of the elliptic shape: the device time
+     of each baseline of the zoo, a halo step of each wire and
+     precision (photo, D 4) and of the elliptic shape, the DP minibatch
+     step, the GSPMD step and the 2-D step: the device time
      against the wall time (the card's busy share), the device operations
      a call and the largest kernels; the photo step's kernels alone and the ELL step's table
      products alone; a TAM epoch and its parts (K1, the einsums, the ELL
      affinities) alone. The profiler runs only after the timed phases 3
-     to 8, since it adds to the host's launch time;
+     to 8c, since it adds to the host's launch time;
  11. print the kernels' JSON line, the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
@@ -147,8 +175,10 @@ It imports nothing of JAX and nothing of ``ggad_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -233,6 +263,20 @@ BF16_TOL = 1e-3                               # bf16 vs f32 losses (the tests')
 # 2^-8·Â (a low-degree node's Â is near 1/2); a path in the wrong dtype
 # is off by the bf16-vs-f32 gap, several times this
 BF16_SCORE_TOL = 2.0 ** -8
+DP_D = 4                                      # data-parallel shards
+DP_STEPS = 20                                 # timed DP steps
+DP_CHECK_STEPS = 3                            # DP vs single-device steps
+DP_SCORES = 4096                              # DP vs single-device scores
+DP_SCORE_TOL = 1e-5
+DP_EPOCH_BATCHES = 20                         # the DP epoch, cut from 150
+DP_NCCL_STEPS = 2                             # the "dist" mesh at D = 1
+NCCL_TOL = 1e-6                               # NCCL D1 vs local D1
+GSPMD_D = 4
+GSPMD_STEPS = 5                               # steps a run, then one eval
+TP_SHAPE = (2, 2)                             # ('nodes', 'model')
+TP_STEPS = 2
+TP_TOL = 1e-4                                 # tests/test_parallel.py:614
+DRYRUN_D = 4
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
 
@@ -2199,7 +2243,7 @@ def halo_layout_lines(tr) -> list:
     """The plan's widths and wire volume, and each shard's tile sets."""
     from ggad_tpu_torch.parallel.spmm_shard import halo_comm_stats
 
-    setup = tr._halo
+    setup = tr._sharded
     plan, t, sub = setup.plan, setup.tiles, setup.aff_sub
     stats = {d: halo_comm_stats(plan, d) for d in (tr.dataset.feat_dim, N_H)}
     lines = [f"  plan: rows_per_shard {plan.rows_per_shard}, E_shard "
@@ -2232,7 +2276,7 @@ def halo_rect_checks(tr, dtype: str, k1: dict, k2: dict) -> None:
 
     from ggad_tpu_torch.ops.sddmm import l2_normalize_rows
 
-    setup = tr._halo
+    setup = tr._sharded
     t, sub, plan = setup.tiles, setup.aff_sub, setup.plan
     R, W, F = plan.rows_per_shard, plan.buf_width, tr.dataset.feat_dim
     cuda = tr.device
@@ -2289,23 +2333,33 @@ def halo_rect_checks(tr, dtype: str, k1: dict, k2: dict) -> None:
           f"{max(k2_errs):.3g}")
 
 
-def halo_nccl_check(ds, cuda, init, noises) -> None:
-    """The ``"dist"`` communicator on NCCL at world size 1 (a TCPStore
-    on localhost, rank 0) against the local one at D = 1: the one NCCL
-    run a single card allows."""
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """An NCCL process group of world size 1 (a TCPStore on localhost,
+    rank 0), destroyed on leaving: the one NCCL run a single card allows."""
     import socket
 
     import torch.distributed as dist
 
-    from ggad_tpu_torch.parallel.mesh import make_mesh
-    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
     store = dist.TCPStore("127.0.0.1", port, 1, True)
     dist.init_process_group("nccl", store=store, rank=0, world_size=1)
     try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def halo_nccl_check(ds, cuda, init, noises) -> None:
+    """The ``"dist"`` communicator on NCCL at world size 1 (a TCPStore
+    on localhost, rank 0) against the local one at D = 1: the one NCCL
+    run a single card allows."""
+    from ggad_tpu_torch.parallel.mesh import make_mesh
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    with nccl_world_of_one():
         res = {}
         for comm in ("dist", "local"):
             tr = FullBatchTrainer(
@@ -2313,8 +2367,6 @@ def halo_nccl_check(ds, cuda, init, noises) -> None:
                 mesh=make_mesh(1, comm=comm, device=cuda), device=cuda)
             res[comm] = halo_steps(tr, init, noises)[:2]
             del tr
-    finally:
-        dist.destroy_process_group()
     d1 = assert_close_rel(res["dist"][0], res["local"][0], LOSS_TOL,
                           "NCCL D1 losses")
     d2 = assert_close_rel(res["dist"][1], res["local"][1], SCORE_TOL,
@@ -2585,6 +2637,357 @@ def halo_phase(cuda, k1: dict, k2: dict, later: list) -> dict:
     return kept
 
 
+def step_ms(step, args: list) -> list:
+    """CUDA-event milliseconds of ``step(*a)`` for each ``a`` of ``args``
+    in turn."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(args) + 1)]
+    ev[0].record()
+    for i, a in enumerate(args):
+        step(*a)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(args))]
+
+
+def held_and_peak(fn):
+    """``fn()``'s result, the device memory it leaves held and the peak
+    above the start while it ran, both in MB."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (torch.cuda.memory_allocated() - base) / 1e6,
+            (torch.cuda.max_memory_allocated() - base) / 1e6)
+
+
+def reset_launches() -> None:
+    from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+
+    bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+
+
+def read_launches() -> tuple:
+    import torch
+
+    from ggad_tpu_torch.ops.bcsr_sddmm import bcsr_sddmm_colsum
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+
+    torch.cuda.synchronize()
+    return bcsr_spmm.launches, bcsr_sddmm_colsum.launches
+
+
+def record_zero_launches(k1: dict, k2: dict, path: str) -> None:
+    """Fail unless K1 and K2 launched no time since ``reset_launches``;
+    record the path's 0 launches."""
+    n1, n2 = read_launches()
+    if n1 or n2:
+        raise RuntimeError(f"{path}: K1 {n1}, K2 {n2} launches; expected 0")
+    for rec in (*k1.values(), *k2.values()):
+        rec["paths"][path] = 0
+
+
+def dp_phase(cuda, k1: dict, k2: dict, later: list, ds, adj, split) -> None:
+    """Phase 6c: ``MiniBatchTrainer(mesh=DP_D)`` on phase 6's DGraph-shaped
+    graph beside the single-device trainer (same seed-0 weights, batches
+    and draws): held memory, losses, scores, step medians, one epoch; K1
+    = K2 = 0; then NCCL at world size 1 against the local mesh at D 1."""
+    import numpy as np
+    import torch
+
+    from ggad_tpu_torch.parallel.mesh import make_mesh
+    from ggad_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    t_phase = time.perf_counter()
+    idx_train, idx_valid, idx_test, labels, idx_anom = split
+    inputs = dict(adj=adj, features=ds.features, labels=labels,
+                  idx_train=idx_train, idx_anomaly=idx_anom,
+                  idx_valid=idx_valid, idx_test=idx_test)
+    shape = dict(emb_dim=64, fanout1=16, fanout2=8, batch_size=150,
+                 n_anom_per_batch=50, num_batches=DP_EPOCH_BATCHES,
+                 eval_batch=1024)
+    path = f"minibatch DP D{DP_D} (DGraph)"
+    reset_launches()
+    trainers, held = {}, {}
+    for d in (None, DP_D):
+        trainers[d], held[d], _ = held_and_peak(partial(
+            MiniBatchTrainer, **inputs, **shape, mesh=d, device=cuda))
+    one, dp = trainers[None], trainers[DP_D]
+    if not abs(held[DP_D] - held[None]) <= 0.1 * held[None]:
+        raise RuntimeError(f"DP D{DP_D} holds {held[DP_D]:.1f} MB against "
+                           f"the single-device {held[None]:.1f} MB: the "
+                           f"tables are not held once")
+    batches = one.draw_batches(np.random.default_rng(4))
+    nb, b = batches.shape
+    gen = torch.Generator(cuda).manual_seed(4)
+    u1 = torch.rand(nb, b, 16, generator=gen, device=cuda)
+    u2 = torch.rand(nb, b * 16, 8, generator=gen, device=cuda)
+    ue = torch.rand(-(-DP_SCORES // 1024), 1024, 16, generator=gen,
+                    device=cuda)
+    nodes = np.random.default_rng(5).choice(idx_valid, DP_SCORES,
+                                            replace=False)
+    losses, scores = {}, {}
+    for d, t in trainers.items():
+        t.reset()
+        losses[d] = [[float(x) for x in t.train_step(batches[i], u1[i],
+                                                     u2[i])]
+                     for i in range(DP_CHECK_STEPS)]
+        t.draws = lambda s: ue
+        scores[d] = t.score_nodes(None, nodes)
+        t.draws = None
+    d_loss = assert_close_rel(losses[DP_D], losses[None], LOSS_TOL,
+                              "DP vs single-device losses")
+    d_score = assert_close_rel(scores[DP_D], scores[None], DP_SCORE_TOL,
+                               "DP vs single-device scores")
+    args = [(batches[i % nb], u1[i % nb], u2[i % nb])
+            for i in range(3, 3 + DP_STEPS)]
+    ms, peak = {}, {}
+    for d, t in trainers.items():
+        ms[d], _, peak[d] = held_and_peak(partial(step_ms, t.train_step,
+                                                  args))
+    med = {d: statistics.median(v) for d, v in ms.items()}
+    t0 = time.perf_counter()
+    last = dp.train_epoch(batches, gen)
+    torch.stack(list(last)).tolist()
+    epoch_s = time.perf_counter() - t0
+    record_zero_launches(k1, k2, path)
+    print(f"minibatch DP D{DP_D} (DGraph, local communicator): held "
+          f"{held[DP_D]:.1f} MB (single-device {held[None]:.1f} MB: the "
+          f"tables once); {DP_CHECK_STEPS} steps vs single-device from the "
+          f"same weights, batches and draws: losses max|d| {d_loss:.3g} "
+          f"(tol {LOSS_TOL}·(1 + |ref|)), {DP_SCORES} scores max|d| "
+          f"{d_score:.3g} (tol {DP_SCORE_TOL}·(1 + |ref|)); step ms median "
+          f"{med[DP_D]:.3f} (single-device {med[None]:.3f}; {DP_STEPS} "
+          f"after 3 warm-up) {[round(x, 3) for x in ms[DP_D]]}; peak "
+          f"{peak[DP_D]:.1f} MB above the held (single-device "
+          f"{peak[None]:.1f}); one epoch of {nb} batches (one read) "
+          f"{epoch_s:.3f} s; K1 0, K2 0 launches")
+    later.append(partial(busy_line, f"minibatch DP D{DP_D} train step",
+                         lambda: dp.train_step(batches[0], u1[0], u2[0]),
+                         med[DP_D], DP_STEPS))
+    later.append(partial(busy_line, "minibatch single-device train step "
+                         "(beside DP)",
+                         lambda: one.train_step(batches[0], u1[0], u2[0]),
+                         med[None], DP_STEPS))
+
+    res = {}
+    with nccl_world_of_one():
+        for comm in ("dist", "local"):
+            t = MiniBatchTrainer(**inputs, **shape, device=cuda,
+                                 mesh=make_mesh(1, comm=comm, device=cuda))
+            res[comm] = [[float(x) for x in t.train_step(batches[i], u1[i],
+                                                         u2[i])]
+                         for i in range(DP_NCCL_STEPS)]
+            del t
+    d_nccl = assert_close_rel(res["dist"], res["local"], NCCL_TOL,
+                              "DP NCCL D1 vs local D1 losses")
+    print(f"minibatch DP NCCL world size 1 vs local D1, {DP_NCCL_STEPS} "
+          f"steps: losses max|d| {d_nccl:.3g} (tol {NCCL_TOL}·(1 + |ref|)); "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def gspmd_steps(setup, mesh, params: dict, noises: list,
+                sharded=frozenset()):
+    """Timed steps of ``make_sharded_train_step`` from ``params``: (the
+    losses, the step ms, a step function for the profiler)."""
+    import torch
+
+    from ggad_tpu_torch.parallel.full_batch import make_sharded_train_step
+
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    step = make_sharded_train_step(
+        setup, torch.optim.Adam(leaves.values(), lr=1e-3), mesh,
+        sharded=sharded)
+    out = []
+    ms = step_ms(lambda n: out.append(step(leaves, n)),
+                 [(n,) for n in noises])
+    return ([float(x.total) for x in out], ms,
+            lambda: step(leaves, noises[0]))
+
+
+def gspmd_phase(cuda, k1: dict, k2: dict, later: list) -> None:
+    """Phase 8c: the GSPMD trainer, 2-D tensor parallelism, the entry
+    points and the CLI's multi-device options on the card."""
+    import numpy as np
+    import torch
+
+    from ggad_tpu_torch.datasets.synthetic import photo_bench
+    from ggad_tpu_torch.entry import dryrun_multichip, entry
+    from ggad_tpu_torch.parallel.full_batch import (
+        prepare_gspmd,
+        shard_params_2d,
+        tp_sharded,
+    )
+    from ggad_tpu_torch.parallel.mesh import make_mesh
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    t_phase = time.perf_counter()
+    ds = photo_bench()
+    kw = dict(embedding_dim=N_H, noise_mean=0.02, noise_std=0.01)
+    refs = {}
+    for impl in ("coo", "bcsr"):
+        ref = FullBatchTrainer(ds, spmm_impl=impl, device=cuda, **kw)
+        if impl == "coo":
+            init = ref.init()
+            gen = torch.Generator(cuda).manual_seed(9)
+            noises = [ref.draw_noise(gen) for _ in range(GSPMD_STEPS)]
+            first = halo_steps(ref, init, noises[:1])
+        refs[impl] = halo_steps(ref, init, noises, timed=True)
+        refs[impl] += (ref.params(),)
+        del ref
+    path = f"gspmd photo D{GSPMD_D}"
+    reset_launches()
+    t0 = time.perf_counter()
+    tr, held, _ = held_and_peak(partial(
+        FullBatchTrainer, ds, mesh=GSPMD_D, dist_impl="gspmd", device=cuda,
+        **kw))
+    prep = time.perf_counter() - t0
+    after_one = np.abs(halo_steps(tr, init, noises[:1])[1]
+                       - np.asarray(first[1], np.float64)).max()
+    (losses, scores, ms), _, peak = held_and_peak(
+        partial(halo_steps, tr, init, noises, timed=True))
+    if tr.route != "coo":
+        raise RuntimeError(f"GSPMD route {tr.route}, expected coo")
+    d = (assert_close_rel(losses, refs["coo"][0], LOSS_TOL,
+                          "GSPMD vs single-device COO losses"),
+         assert_close_rel(tr.eval_scores(refs["coo"][3]), refs["coo"][1],
+                          SCORE_TOL, "GSPMD vs single-device COO scores at "
+                          "its weights"))
+    record_zero_launches(k1, k2, path)
+    # readings: after each side's own steps (Adam's first steps move a
+    # weight by ±lr whatever the size of its gradient, so a near-0
+    # gradient whose sign rounding decides parts the runs), and the same
+    # spread between the single-device trainer's own two routes
+    own = np.abs(np.asarray(scores, np.float64) - refs["coo"][1]).max()
+    routes = np.abs(np.asarray(refs["bcsr"][1], np.float64)
+                    - refs["coo"][1]).max()
+    med = statistics.median(ms)
+    print(f"GSPMD photo D{GSPMD_D} f32 (all-gather layout, local "
+          f"communicator): prepare {prep:.3f} s, held {held:.1f} MB, peak "
+          f"{peak:.1f} MB above it; K1 0, K2 0 launches ({GSPMD_STEPS} "
+          f"steps + an evaluation); step ms {[round(x, 3) for x in ms]} "
+          f"(median {med:.3f}; single-device COO "
+          f"{statistics.median(refs['coo'][2]):.3f}, BCSR "
+          f"{statistics.median(refs['bcsr'][2]):.3f}); vs single-device "
+          f"COO: {GSPMD_STEPS} steps' losses max|d| {d[0]:.3g}, scores at "
+          f"its weights {d[1]:.3g} (tol {LOSS_TOL}·(1 + |ref|)); readings: "
+          f"scores after each side's own step {after_one:.3g}, own "
+          f"{GSPMD_STEPS} steps {own:.3g}, and single-device BCSR vs COO "
+          f"after them {routes:.3g}")
+    later.append(partial(busy_line, f"GSPMD step D{GSPMD_D}",
+                         halo_step_fn(tr, noises[0]), med, GSPMD_STEPS))
+    del tr
+
+    # 2-D tensor parallelism against the 1-D step at the same D
+    runs = {}
+    for name, mesh in (
+            ("1-D", make_mesh(GSPMD_D, device=cuda)),
+            ("2-D", make_mesh(GSPMD_D, device=cuda,
+                              axis_names=("nodes", "model"),
+                              shape=TP_SHAPE))):
+        reset_launches()
+        params, sharded = init, frozenset()
+        if name == "2-D":
+            sharded = frozenset(k for k, v in init.items()
+                                if tp_sharded(k, v, TP_SHAPE[1]))
+            params = shard_params_2d(init, mesh)
+        setup, held, _ = held_and_peak(partial(prepare_gspmd, ds, mesh))
+        (tl, tms, fn), _, peak = held_and_peak(partial(
+            gspmd_steps, setup, mesh, params, noises[:TP_STEPS], sharded))
+        record_zero_launches(k1, k2, f"gspmd photo {name} D{GSPMD_D}")
+        runs[name] = (tl, tms, held, peak)
+        later.append(partial(busy_line, f"GSPMD {name} step "
+                             f"{TP_SHAPE if name == '2-D' else GSPMD_D}",
+                             fn, statistics.median(tms), TP_STEPS))
+    l1, l2 = runs["1-D"][0], runs["2-D"][0]
+    d_tp = max(abs(a - c) / abs(c) for a, c in zip(l2, l1))
+    if not d_tp <= TP_TOL:
+        raise RuntimeError(f"2-D losses {l2} vs 1-D {l1}: relative "
+                           f"{d_tp:.3g} over {TP_TOL}")
+    print(f"2-D TP {TP_SHAPE} ('nodes', 'model') photo f32, {TP_STEPS} "
+          f"steps: losses {[round(x, 6) for x in l2]} vs 1-D D{GSPMD_D} "
+          f"{[round(x, 6) for x in l1]}, max relative |d| {d_tp:.3g} (tol "
+          f"{TP_TOL}); step ms median {statistics.median(runs['2-D'][1]):.3f}"
+          f" (1-D {statistics.median(runs['1-D'][1]):.3f}); held "
+          f"{runs['2-D'][2]:.1f} MB (1-D {runs['1-D'][2]:.1f}), peak above "
+          f"it {runs['2-D'][3]:.1f} MB (1-D {runs['1-D'][3]:.1f}); sharded "
+          f"over 'model': {sorted(sharded)}")
+
+    # the entry points
+    fn, args = entry()
+    logits = fn(*args)
+    if tuple(logits.shape) != (512, 1) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"entry(): logits {tuple(logits.shape)}, finite "
+                           f"{bool(torch.isfinite(logits).all())}")
+    reset_launches()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(DRYRUN_D)
+    n1, n2 = read_launches()
+    legs = {k: (v["k1"], v["k2"]) for k, v in out.items()
+            if isinstance(v, dict)}
+    expect = (DRYRUN_D * (HALO_K1["prepare"] + HALO_K1["step"]),
+              DRYRUN_D * HALO_K2_STEP)
+    if legs.pop("halo bcsr sched") != expect or (n1, n2) != expect \
+            or any(v != (0, 0) for v in legs.values()):
+        raise RuntimeError(f"dryrun_multichip({DRYRUN_D}) launches: K1 {n1}"
+                           f", K2 {n2}, by leg {legs}; expected {expect} on "
+                           f"the BCSR leg alone")
+    dry = f"dryrun_multichip({DRYRUN_D}) halo bcsr sched"
+    k1["float32"]["paths"][dry], k2["float32"]["paths"][dry] = n1, n2
+    print(f"entry(): logits (512, 1) finite; dryrun_multichip({DRYRUN_D}) "
+          f"every assertion held in {time.perf_counter() - t0:.3f} s; the "
+          f"halo bcsr leg K1 {n1}, K2 {n2} launches (expected {expect}), "
+          f"the other legs 0; losses "
+          + json.dumps({k: round(v["loss"] if isinstance(v, dict) else v, 6)
+                        for k, v in out.items()}))
+
+    # the CLI's multi-device options on the card, in two processes at once
+    cli = [sys.executable, "-m", "ggad_tpu_torch.cli"]
+    cmds = {
+        "--dp_devices 4": cli + ["--dataset", "dgraphfin",
+                                 "--synthetic_scale", "0.01", "--model",
+                                 "ggad-minibatch", "--num_epoch", "2",
+                                 "--dp_devices", "4"],
+        "--mesh_devices 4 --dist_impl gspmd": cli + [
+            "--dataset", "photo", "--synthetic_scale", "0.05",
+            "--embedding_dim", "64", "--num_epoch", "4", "--eval_every",
+            "2", "--mesh_devices", "4", "--dist_impl", "gspmd"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 cwd=os.path.dirname(os.path.abspath(
+                                     __file__)))
+             for k, c in cmds.items()}
+    try:
+        done = {k: p.communicate(timeout=300) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, p in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"CLI {k}: exit {p.returncode}\n"
+                               f"{done[k][1][-3000:]}")
+    recs = {k: json.loads(done[k][0].strip().splitlines()[-1]) for k in cmds}
+    mb, fb = recs["--dp_devices 4"], recs["--mesh_devices 4 --dist_impl gspmd"]
+    if not (np.isfinite(mb["test_auc"]) and np.isfinite(fb["auc"])
+            and fb["spmm_route"] == "coo" and fb["n_shards"] == 4):
+        raise RuntimeError(f"CLI records {recs}")
+    print(f"CLI on the card ({time.perf_counter() - t0:.1f} s, both at "
+          f"once): " + json.dumps(recs))
+    print(f"multi-device phase (GSPMD, 2-D, entry points, CLI) "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_record(name, source, replaces, rec) -> dict:
     paths = rec.get("paths", {})
     out = {"name": name, "route": "cuda", "source": source,
@@ -2636,10 +3039,12 @@ def main() -> int:
     sparse_phase(cuda, k1, k2, later)
     mb = minibatch_phase(cuda, k1, k2, later)
     minibatch_baselines_phase(cuda, k1, k2, later, *mb)
+    dp_phase(cuda, k1, k2, later, *mb)
     del mb
     zoo_phase(cuda, k1, k2, later)
     tam_pair = tam_phase(cuda, k1, k2, later)
     halo = halo_phase(cuda, k1, k2, later)
+    gspmd_phase(cuda, k1, k2, later)
     kernel_phase(cuda, k1, k2)
     tam_kernel_checks(tam_pair, k1)
     for dtype, tr in halo.items():

@@ -14,12 +14,15 @@ config whose list-valued keys expand to a grid (``--multi_run`` runs all
 of it and aggregates). All run on the card unless ``--device cpu`` is
 given. ``--spmm_impl`` picks the full-batch sparse route (``auto``: BCSR
 tiles on a tile-dense graph, ELL tables on a tile-sparse one) and
-``--reorder`` RCM-renumbers the nodes first. ``--mesh_devices D`` trains
-full-batch GGAD over D shards on the halo exchange (``--dist_schedule``
-picks its wire): in one process, D shards on one device, or under
-``torchrun`` (``WORLD_SIZE`` set) one shard a rank, on ``cuda:LOCAL_RANK``
-over NCCL (gloo with ``--device cpu``). The last line of the output is
-one JSON record (rank 0's under ``torchrun``).
+``--reorder`` RCM-renumbers the nodes first; JAX's names ``xla`` and
+``pallas`` are taken as ``coo`` and ``bcsr``. ``--mesh_devices D`` trains
+full-batch GGAD over D shards, on the halo exchange (``--dist_impl
+halo``, ``--dist_schedule`` picks its wire) or the all-gather layout
+(``--dist_impl gspmd``); ``--dp_devices D`` trains minibatch GGAD with
+its batch axis over D shards. Either runs in one process, D shards on one
+device, or under ``torchrun`` (``WORLD_SIZE`` set) one shard a rank, on
+``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device cpu``). The last line
+of the output is one JSON record (rank 0's under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print train-split AUROC every k epochs "
                         "(reference run.py:217-228 cadence: 2)")
     p.add_argument("--spmm_impl", type=str, default="auto",
-                   choices=["auto", "coo", "bcsr", "ell"])
+                   choices=["auto", "coo", "bcsr", "ell", "xla", "pallas"],
+                   help="xla and pallas are JAX's names of coo and bcsr")
     p.add_argument("--spmm_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--reorder", action="store_true",
@@ -87,13 +91,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "normals + active contamination, "
                         "utils_tam.py:159-178); --no-tam_split keeps the "
                         "GGAD split the dataset ships with")
+    p.add_argument("--dp_devices", type=int, default=None,
+                   help="data-parallel shard count for ggad-minibatch "
+                        "(the batch axis shards; under torchrun: the world "
+                        "size)")
     p.add_argument("--mesh_devices", type=int, default=None,
-                   help="shard count for full-batch ggad over the halo "
-                        "exchange (under torchrun: the world size)")
+                   help="shard count for distributed full-batch ggad "
+                        "(under torchrun: the world size)")
     p.add_argument("--dist_impl", type=str, default="halo",
                    choices=["halo", "gspmd"],
-                   help="multi-device schedule for --mesh_devices (gspmd "
-                        "is not ported yet)")
+                   help="multi-device schedule for --mesh_devices: the "
+                        "halo exchange or the all-gather (gspmd) layout")
     p.add_argument("--dist_schedule", type=str, default="dense",
                    choices=["dense", "ring", "sched"],
                    help="halo wire schedule: dense = one all-to-all "
@@ -107,8 +115,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+SPMM_ALIASES = {"xla": "coo", "pallas": "bcsr"}   # ggad_tpu/cli.py:40-41
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    args.spmm_impl = SPMM_ALIASES.get(args.spmm_impl, args.spmm_impl)
     if args.config:
         return run_from_config(args)
     if args.score_only and args.model != "ggad":
@@ -135,11 +147,36 @@ def main(argv=None) -> int:
     if args.score_only:
         return score(args, ds)
     if args.model != "ggad":
-        from ggad_tpu_torch.train.baselines import run_baseline
-
-        print(json.dumps(run_baseline(args.model, ds, args)))
-        return 0
+        return baseline(args, ds)
     return train(args, ds)
+
+
+def baseline(args, ds) -> int:
+    """Any ``--model`` but ggad; ``--dp_devices`` (ggad-minibatch only)
+    shards the batch axis, under ``torchrun`` over the ranks."""
+    from ggad_tpu_torch.train.baselines import run_baseline
+
+    rank = 0
+    if args.dp_devices is not None:
+        if args.model != "ggad-minibatch":
+            raise SystemExit("--dp_devices applies to --model "
+                             "ggad-minibatch only")
+        args.dp_devices, args.device, rank = dist_mesh(args,
+                                                       args.dp_devices)
+    try:
+        rec = run_baseline(args.model, ds, args)
+    finally:
+        close_dist(args.dp_devices)
+    if rank == 0:
+        print(json.dumps(rec))
+    return 0
+
+
+def close_dist(mesh) -> None:
+    """Leave the process group that :func:`dist_mesh` joined."""
+    if mesh is not None and not isinstance(mesh, int):
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 def score(args, ds) -> int:
@@ -170,7 +207,7 @@ def train(args, ds) -> int:
     from ggad_tpu_torch.utils.logging import JsonlLogger
 
     preset = preset_for(args.dataset)
-    mesh, device, rank = dist_mesh(args)
+    mesh, device, rank = dist_mesh(args, args.mesh_devices)
     logger = (JsonlLogger(args.log_jsonl) if args.log_jsonl and rank == 0
               else None)
     built = []
@@ -206,9 +243,7 @@ def train(args, ds) -> int:
     finally:
         if logger is not None:
             logger.close()
-        if mesh is not None and not isinstance(mesh, int):
-            import torch.distributed as dist
-            dist.destroy_process_group()
+        close_dist(mesh)
     if rank == 0:
         print(json.dumps({"dataset": ds.name, "model": "ggad",
                           "spmm_route": built[-1].route,
@@ -218,15 +253,15 @@ def train(args, ds) -> int:
     return 0
 
 
-def dist_mesh(args):
-    """(mesh, device, rank) of a full-batch run: ``--mesh_devices`` as a
-    shard count in one process, or, under ``torchrun``, the ``"dist"``
-    communicator of this rank (NCCL on ``cuda:LOCAL_RANK``, gloo with
-    ``--device cpu``)."""
+def dist_mesh(args, n_shards):
+    """(mesh, device, rank) of a run over ``n_shards`` (``--mesh_devices``
+    or ``--dp_devices``): the shard count in one process, or, under
+    ``torchrun``, the ``"dist"`` communicator of this rank (NCCL on
+    ``cuda:LOCAL_RANK``, gloo with ``--device cpu``)."""
     import os
 
-    if "WORLD_SIZE" not in os.environ or args.mesh_devices is None:
-        return args.mesh_devices, args.device, 0
+    if "WORLD_SIZE" not in os.environ or n_shards is None:
+        return n_shards, args.device, 0
     import torch
     import torch.distributed as dist
 
@@ -239,10 +274,9 @@ def dist_mesh(args):
         # --checkpoint_dir
         raise SystemExit("--retries is not supported under torchrun: "
                          "restart the job to resume from --checkpoint_dir")
-    if args.mesh_devices != world:
-        raise SystemExit(f"--mesh_devices {args.mesh_devices} under "
-                         f"torchrun needs {args.mesh_devices} ranks, not "
-                         f"{world}")
+    if n_shards != world:
+        raise SystemExit(f"{n_shards} shards under torchrun need "
+                         f"{n_shards} ranks, not {world}")
     if args.device == "cpu":
         device, backend = torch.device("cpu"), "gloo"
     else:

@@ -41,6 +41,11 @@ from ggad_tpu_torch.sampler.neighbor import (
 from ggad_tpu_torch.train.losses import bce_with_logits
 
 
+def l2_normalize(v: torch.Tensor) -> torch.Tensor:
+    """Rows over their L2 norm, floored at 1e-8."""
+    return v / v.norm(dim=-1, keepdim=True).clamp(min=1e-8)
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor,
                 axis: int) -> torch.Tensor:
     num = (x * mask.unsqueeze(-1)).sum(axis)
@@ -96,11 +101,16 @@ class MiniBatchGGAD(nn.Module):
 
     def forward(self, feats: torch.Tensor, table: NeighborTable,
                 batch: torch.Tensor, n_anom: int, train: bool = True, *,
-                u1: torch.Tensor, u2: Optional[torch.Tensor] = None
-                ) -> MiniBatchGGADOutput:
+                u1: torch.Tensor, u2: Optional[torch.Tensor] = None,
+                anom: Optional[torch.Tensor] = None) -> MiniBatchGGADOutput:
         """``batch``: [B] int32 node ids, the last ``n_anom`` the anomaly
         slots; ``feats``: [N, F] frozen features. ``u1`` [B, K1] draws the
-        first hop; ``u2`` [B·K1, K2] the second (train branch only)."""
+        first hop; ``u2`` [B·K1, K2] the second (train branch only).
+        ``anom`` [B] bool, in place of ``n_anom``, marks the anomaly slots
+        row by row (a data-parallel shard's slice of the batch,
+        ``parallel.minibatch_dp``): the generator then runs on every row,
+        ``combined_all`` takes its output where ``anom`` is set, and
+        ``anomaly_feat`` / ``anomaly_feat_new`` are ``[B, emb]``."""
         b = batch.shape[0]
         if train:
             n1, m1, n2, m2 = sample_two_hop(table, batch, self.fanout1,
@@ -132,6 +142,12 @@ class MiniBatchGGAD(nn.Module):
 
         # outliers generated from the anomaly slots' 2-hop context
         # (reference src/graphsage.py:427-430)
+        if anom is not None:
+            gen = torch.relu(self.fc_gen(context))
+            combined_all = torch.where(anom[:, None], gen, combined)
+            return MiniBatchGGADOutput(combined_all,
+                                       (combined_all @ self.w_score)[:, 0],
+                                       context, combined, gen)
         anomaly_feat = combined[b - n_anom:]
         anomaly_feat_new = torch.relu(self.fc_gen(context[b - n_anom:]))
         combined_all = torch.cat([combined[: b - n_anom], anomaly_feat_new])
@@ -158,10 +174,8 @@ def minibatch_ggad_losses(out: MiniBatchGGADOutput, n_anom: int, *,
                         torch.ones(n_anom, device=dev)])
     loss_cls = bce_with_logits(out.scores, labels).mean()
 
-    def l2n(v):
-        return v / v.norm(dim=-1, keepdim=True).clamp(min=1e-8)
-
-    aff = (l2n(out.combined_all) * l2n(out.context)).sum(-1)
+    aff = (l2_normalize(out.combined_all)
+           * l2_normalize(out.context)).sum(-1)
     aff_norm = aff[: b - n_anom].mean()
     aff_anom = aff[b - n_anom:].mean()
     loss_constraint = torch.clamp(

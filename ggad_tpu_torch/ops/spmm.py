@@ -15,6 +15,8 @@ import torch
 from ggad_tpu_torch.ops.bcsr_spmm import BCSRGraph, bcsr_spmm
 from ggad_tpu_torch.ops.ell_spmm import ELLGraph, ell_spmm
 
+SPMM_OP_IMPLS = ("auto", "coo", "xla", "bcsr", "pallas")
+
 
 def spmm_coo(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
              x: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -29,12 +31,18 @@ def spmm(g, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
 
     Dispatch on the graph type, as ``ggad_tpu.ops.spmm.spmm`` does: a
     BCSRGraph runs the BCSR kernel and an ELLGraph ``ell_spmm`` unless
-    ``impl='coo'`` (JAX's ``'xla'``) forces the gather path.
+    ``impl='coo'`` forces the gather path. JAX's names are aliases:
+    ``'xla'`` of ``'coo'``, ``'pallas'`` of ``'bcsr'``, which on a graph
+    without tiles raises JAX's guidance (``pallas_spmm.py:408-413``).
     """
-    if impl not in ("auto", "coo"):
+    if impl not in SPMM_OP_IMPLS:
         raise ValueError(f"unknown spmm impl {impl!r}")
-    if isinstance(g, BCSRGraph) and impl == "auto":
+    gather = impl in ("coo", "xla")
+    if isinstance(g, BCSRGraph) and not gather:
         return bcsr_spmm(g.tiles, x)
-    if isinstance(g, ELLGraph) and impl == "auto":
+    if isinstance(g, ELLGraph) and not gather:
         return ell_spmm(g.tables, x)
+    if impl in ("bcsr", "pallas"):
+        raise TypeError(f"spmm(impl={impl!r}) needs a BCSRGraph (see "
+                        f"as_bcsr_graph); got {type(g).__name__}")
     return spmm_coo(g.row, g.col, g.val, x, g.n_nodes)

@@ -9,7 +9,10 @@ are exactly the single-device model's (``models.ggad.GGAD``'s
 ``state_dict``, so ``interop`` carries JAX's weights unchanged); the
 functions below read them by name. Every replicated parameter enters the
 per-shard compute through ``mesh.pvary``, which makes its gradient the
-single-device one on every rank (``parallel.mesh``).
+single-device one on every rank (``parallel.mesh``). The forward and
+losses (:func:`sharded_ggad_losses`) are shared with the GSPMD path
+(``parallel.full_batch``), which passes its own aggregation and, for 2-D
+tensor parallelism, its ``'model'`` axis (:class:`ShardOps`).
 
 The sparse route follows the single-device trainer's rule
 (``train.full_batch.spmm_route`` on the whole graph): BCSR gives each
@@ -25,7 +28,7 @@ tile store to ELL. (JAX keys its BCSR halo to ``spmm_impl="pallas"``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -84,20 +87,119 @@ def _halo_mm(part, plan, mesh, tiles, ells):
     return lambda h: spmm_halo(part, plan, h, mesh)
 
 
-def _encode(p: Params, halo_mm, ax, mesh) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class ShardOps:
+    """How a sharded GGAD forward runs: ``nodes`` is the 1-D communicator
+    over the node shards and ``mm`` the aggregation Â·h of a node-sharded
+    ``h [n, R, d]`` (the halo exchange, or the all-gather of the GSPMD
+    path). With 2-D tensor parallelism, ``model`` is the communicator over
+    the ``'model'`` axis and ``sharded`` the parameters whose output dim
+    it shards (``parallel.full_batch.shard_params_2d``): their products
+    are column-parallel and all-gathered on ``'model'`` after."""
+
+    nodes: object
+    mm: Callable
+    model: object = None
+    sharded: frozenset = frozenset()
+
+    def lin(self, p: Params, name: str, h: torch.Tensor,
+            node_varying: bool = True) -> torch.Tensor:
+        """``h @ W.t()`` for the weight ``name``. ``node_varying``: ``h``
+        is node-sharded, so a replicated ``W`` enters per-shard compute
+        (``pvary`` over the node shards)."""
+        w = p[name]
+        if node_varying:
+            w = self.nodes.pvary(w)
+        if name not in self.sharded:
+            return h @ w.t()
+        y = torch.einsum("...i,boi->b...o", self.model.pvary(h), w)
+        return self.model.all_gather(y, dim=-1)
+
+    def vec(self, p: Params, name: str) -> torch.Tensor:
+        """A bias or PReLU slope, whole, for node-sharded compute."""
+        v = p[name]
+        if name in self.sharded:
+            v = self.model.all_gather(v)
+        return self.nodes.pvary(v)
+
+
+def _encode(p: Params, ops: ShardOps, ax) -> torch.Tensor:
     """The two GCN layers on sharded rows, gcn1 on the hoisted Â·x."""
     def gcn(name, h, aggregate):
-        w, b, a = (mesh.pvary(p[f"{name}.{k}"])
-                   for k in ("fc.weight", "bias", "prelu.alpha"))
-        return _prelu(aggregate(h @ w.t()) + b, a)
+        z = aggregate(ops.lin(p, f"{name}.fc.weight", h))
+        return _prelu(z + ops.vec(p, f"{name}.bias"),
+                      ops.vec(p, f"{name}.prelu.alpha"))
 
-    return gcn("gcn2", gcn("gcn1", ax, lambda h: h), halo_mm)
+    return gcn("gcn2", gcn("gcn1", ax, lambda h: h), ops.mm)
 
 
-def _head(p: Params, h: torch.Tensor) -> torch.Tensor:
-    h = torch.relu(h @ p["head.fc1.weight"].t())
-    h = torch.relu(h @ p["head.fc2.weight"].t())
-    return h @ p["head.fc3.weight"].t()
+def _head(p: Params, ops: ShardOps, h: torch.Tensor,
+          node_varying: bool) -> torch.Tensor:
+    h = torch.relu(ops.lin(p, "head.fc1.weight", h, node_varying))
+    h = torch.relu(ops.lin(p, "head.fc2.weight", h, node_varying))
+    return ops.lin(p, "head.fc3.weight", h, node_varying)
+
+
+def sharded_ggad_losses(
+    params: Params,
+    ops: ShardOps,
+    part: EdgePartition,
+    ax: torch.Tensor,
+    seed_idx: NodeIndex,
+    normal_idx: NodeIndex,
+    noise: torch.Tensor,
+    seed_rows: HaloSeedRows,
+    aff_sub: HaloAffinitySubset,
+    *,
+    confidence_margin: float = 0.7,
+    pos_weight: float = 1.0,
+) -> GGADLosses:
+    """GGAD's train-branch forward and three-term loss over the node
+    shards of ``ops`` (``models.ggad`` and ``train.losses`` term for
+    term), for the halo and the GSPMD paths: ``ax`` is the sharded Â·x,
+    ``noise`` the ``[S, n_h]`` perturbation; ``seed_rows`` turns the
+    generator's aggregation into partials and a ``psum``; ``aff_sub``
+    reads the margin's affinity at the labeled columns only."""
+    p, mesh = params, ops.nodes
+    emb = _encode(p, ops, ax)
+    emb_abnormal = gather_rows(mesh, emb, seed_idx) + noise
+
+    # generated outliers from neighbourhood aggregates (model.py:151-156)
+    agg = spmm_halo_seed_rows(seed_rows, emb, mesh)
+    emb_con = torch.relu(ops.lin(p, "fc4.weight", agg, node_varying=False))
+    emb_combine = torch.cat([gather_rows(mesh, emb, normal_idx), emb_con])
+    logits = _head(p, ops, emb_combine, node_varying=False)
+    emb = set_rows(mesh, emb, seed_idx, emb_con)
+
+    n_normal, n_seed = normal_idx.idx.shape[0], seed_idx.idx.shape[0]
+    dev = logits.device
+    labels = torch.cat([torch.zeros(n_normal, 1, device=dev),
+                        torch.ones(n_seed, 1, device=dev)])
+    loss_bce = bce_with_logits(logits, labels, pos_weight).mean()
+
+    # built over [normal ‖ seed], the single-device subset's order, on
+    # raw_adj's partition, whose rows_per_shard is ``part``'s
+    aff = affinity_halo_subset(part, aff_sub, emb, mesh)
+    aff_normal = aff[:n_normal].mean()
+    aff_outlier = aff[n_normal:].mean()
+    loss_margin = torch.clamp(
+        confidence_margin - (aff_normal - aff_outlier), min=0.0)
+
+    # reduced over the seed axis, as the reference does (losses.py:92-101)
+    diff = (emb_con - emb_abnormal).square()
+    loss_rec = diff.sum(0).sqrt().mean()
+
+    total = loss_margin + loss_bce + loss_rec
+    return GGADLosses(total, loss_bce, loss_margin, loss_rec, aff_normal,
+                      aff_outlier)
+
+
+def sharded_ggad_scores(params: Params, ops: ShardOps,
+                        ax: torch.Tensor) -> torch.Tensor:
+    """The eval branch: one one-class logit per node, the replicated
+    ``[D·R]``."""
+    emb = _encode(params, ops, ax)
+    return ops.nodes.all_gather(_head(params, ops, emb, True)[..., 0])
 
 
 def halo_ggad_forward_and_losses(
@@ -117,60 +219,28 @@ def halo_ggad_forward_and_losses(
     confidence_margin: float = 0.7,
     pos_weight: float = 1.0,
 ) -> GGADLosses:
-    """GGAD's train-branch forward and three-term loss over the shards
-    (``halo_trainer.py:63-173``, its production path): ``models.ggad``
-    and ``train.losses`` term for term. ``ax`` is the sharded Â·x,
-    ``noise`` the ``[S, n_h]`` perturbation; ``tiles`` or ``ells`` pick
-    gcn2's per-shard product (neither: the edge-parallel halo);
-    ``seed_rows`` turns the generator's aggregation into partials and a
-    ``psum``; ``aff_sub`` reads the margin's affinity at the labeled
-    columns only. (JAX's function also takes the raw graph's partition
-    and plan for affinity routes that its trainer never selects; the
-    port keeps those ops, ``affinity_halo`` and ``affinity_halo_bcsr``,
-    in ``spmm_shard`` only.)"""
-    p = params
-    emb = _encode(p, _halo_mm(part, plan, mesh, tiles, ells), ax, mesh)
-    emb_abnormal = gather_rows(mesh, emb, seed_idx) + noise
-
-    # generated outliers from neighbourhood aggregates (model.py:151-156)
-    agg = spmm_halo_seed_rows(seed_rows, emb, mesh)
-    emb_con = torch.relu(agg @ p["fc4.weight"].t())
-    emb_combine = torch.cat([gather_rows(mesh, emb, normal_idx), emb_con])
-    logits = _head(p, emb_combine)
-    emb = set_rows(mesh, emb, seed_idx, emb_con)
-
-    n_normal, n_seed = normal_idx.idx.shape[0], seed_idx.idx.shape[0]
-    dev = logits.device
-    labels = torch.cat([torch.zeros(n_normal, 1, device=dev),
-                        torch.ones(n_seed, 1, device=dev)])
-    loss_bce = bce_with_logits(logits, labels, pos_weight).mean()
-
-    # built over [normal ‖ seed], the single-device subset's order, on
-    # raw_adj's partition, whose rows_per_shard is ``plan``'s
-    aff = affinity_halo_subset(plan, aff_sub, emb, mesh)
-    aff_normal = aff[:n_normal].mean()
-    aff_outlier = aff[n_normal:].mean()
-    loss_margin = torch.clamp(
-        confidence_margin - (aff_normal - aff_outlier), min=0.0)
-
-    # reduced over the seed axis, as the reference does (losses.py:92-101)
-    diff = (emb_con - emb_abnormal).square()
-    loss_rec = diff.sum(0).sqrt().mean()
-
-    total = loss_margin + loss_bce + loss_rec
-    return GGADLosses(total, loss_bce, loss_margin, loss_rec, aff_normal,
-                      aff_outlier)
+    """:func:`sharded_ggad_losses` on the halo exchange
+    (``halo_trainer.py:63-173``, its production path): ``tiles`` or
+    ``ells`` pick gcn2's per-shard product (neither: the edge-parallel
+    halo). (JAX's function also takes the raw graph's partition and plan
+    for affinity routes that its trainer never selects; the port keeps
+    those ops, ``affinity_halo`` and ``affinity_halo_bcsr``, in
+    ``spmm_shard`` only.)"""
+    ops = ShardOps(mesh, _halo_mm(part, plan, mesh, tiles, ells))
+    return sharded_ggad_losses(params, ops, part, ax, seed_idx, normal_idx,
+                               noise, seed_rows, aff_sub,
+                               confidence_margin=confidence_margin,
+                               pos_weight=pos_weight)
 
 
 def halo_ggad_eval_scores(params: Params, part: EdgePartition,
                           plan: HaloPlan, ax: torch.Tensor, mesh,
                           tiles: Optional[HaloBCSR] = None,
                           ells: Optional[HaloELL] = None) -> torch.Tensor:
-    """The eval branch: one one-class logit per node, the replicated
-    ``[D·R]`` (``halo_trainer.py:176-213``)."""
-    halo_mm = _halo_mm(part, plan, mesh, tiles, ells)
-    emb = _encode(params, halo_mm, ax, mesh)
-    return mesh.all_gather(_head(params, emb)[..., 0])
+    """The eval branch on the halo exchange: one one-class logit per node,
+    the replicated ``[D·R]`` (``halo_trainer.py:176-213``)."""
+    ops = ShardOps(mesh, _halo_mm(part, plan, mesh, tiles, ells))
+    return sharded_ggad_scores(params, ops, ax)
 
 
 @dataclasses.dataclass

@@ -868,7 +868,8 @@ def affinity_halo_subset(plan: HaloPlan, sub: HaloAffinitySubset,
     normalized target rows it owns in a replicated ``[U, d]``, computes
     its numerator partials over its restricted edges (K2 on its rect
     tiles when the subset has them) and one ``psum`` adds them. Returns
-    the replicated ``[S]``."""
+    the replicated ``[S]``. Of ``plan`` only ``rows_per_shard`` is read,
+    so the partition serves as well."""
     R, U = plan.rows_per_shard, sub.n_uniq
     # zero-norm guard inside l2_normalize_rows (spmm_shard.py:1133-1137)
     emb_n = l2_normalize_rows(emb)

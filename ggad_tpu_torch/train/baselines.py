@@ -539,16 +539,18 @@ def minibatch_trainer(ds: GADDataset, *, split_seed: int,
 
 def run_minibatch_model(name: str, ds: GADDataset, args) -> dict:
     """Train minibatch model ``name`` on ``ds`` with the CLI's ``args``
-    (seed, num_epoch, lr, checkpoint_dir, device) and return the CLI's
-    record (``baselines.py:581-622``). As in JAX, ``--seed`` draws the
-    split; the GGAD trainer keeps its seed 0, the baselines take it."""
+    (seed, num_epoch, lr, checkpoint_dir, device; ``dp_devices``, a shard
+    count or a communicator, for GGAD) and return the CLI's record
+    (``baselines.py:581-622``). As in JAX, ``--seed`` draws the split; the
+    GGAD trainer keeps its seed 0, the baselines take it."""
     if name not in MINIBATCH_MODELS:
         raise ValueError(f"unknown minibatch model {name!r}")
     if name == "ggad-minibatch":
         tr = minibatch_trainer(ds, split_seed=args.seed,
                                num_epochs=args.num_epoch or 30,
                                checkpoint_dir=args.checkpoint_dir,
-                               device=args.device)
+                               device=args.device,
+                               mesh=getattr(args, "dp_devices", None))
         res = tr.train(verbose=True)
         out = {"model": name, "dataset": ds.name,
                "best_val_auc": res.best_val_auc,

@@ -17,14 +17,18 @@ and its backward with two more K1 launches. On a tile-sparse graph (the
 ELL route) gcn2, the seed aggregation and the margin's affinity run on
 sigma tables in plain PyTorch and launch neither kernel.
 
-With ``mesh`` (a shard count D or a ``parallel.mesh`` communicator) the
-trainer runs the halo-partitioned path of ``parallel.halo_trainer``
-instead: the same model, optimizer, ``train()``, ``evaluate()`` and
-checkpoints, with the forward, the losses and the scores computed over D
-shards. On the BCSR route an f32 or bf16 step launches, per shard, K1 six
-times (gcn2 forward and backward on the local and remote rect pairs, the
-margin subset's backward) and K2 once (the margin subset); an evaluation
-launches K1 twice a shard.
+With ``mesh`` (a shard count D or a 1-D ``parallel.mesh`` communicator)
+the trainer runs over D shards instead: the halo-partitioned path of
+``parallel.halo_trainer`` (``dist_impl="halo"``) or the all-gather layout
+of ``parallel.full_batch`` (``dist_impl="gspmd"``). Both keep the same
+model, optimizer, ``train()``, ``evaluate()`` and checkpoints, with the
+forward, the losses and the scores computed over the shards. On the BCSR
+route a halo step launches, per shard, K1 six times (gcn2 forward and
+backward on the local and remote rect pairs, the margin subset's
+backward) and K2 once (the margin subset); a halo evaluation launches K1
+twice a shard. The GSPMD path runs the edge-parallel gathers
+(``spmm_impl`` is forced to ``"coo"``, as JAX forces its XLA path) and
+launches neither kernel.
 """
 
 from __future__ import annotations
@@ -164,9 +168,9 @@ class FullBatchTrainer:
     initial_params: Optional[Any] = None   # flax tree or state_dict
     hoist_ax: bool = True          # precompute Â@x once (Â(xW₁)=(Âx)W₁)
     device: DeviceLike = None
-    mesh: Optional[Any] = None     # shard count D or a parallel.mesh
-                                   # communicator → the halo path
-    dist_impl: str = "halo"        # "gspmd" is not ported yet
+    mesh: Optional[Any] = None     # shard count D or a 1-D parallel.mesh
+                                   # communicator → D shards
+    dist_impl: str = "halo"        # "halo" or "gspmd" (all-gather layout)
     dist_schedule: str = "dense"   # halo wire: "dense", "ring", "sched"
 
     def __post_init__(self):
@@ -182,12 +186,12 @@ class FullBatchTrainer:
             self.noise_mean = preset.noise_mean
         if self.noise_std is None:
             self.noise_std = preset.noise_std
-        self._halo = None
+        self._sharded = None       # the halo or GSPMD setup, with a mesh
         # made at the first step: building a torch optimizer imports
         # torch._dynamo (seconds), which serving never needs
         self.optimizer: Optional[torch.optim.Optimizer] = None
         if self.mesh is not None:
-            return self._post_init_halo()
+            return self._post_init_sharded()
 
         adj, self.raw_adj = normalize_adj_reference(
             from_scipy(ds.adj, device=self.device))
@@ -211,20 +215,19 @@ class FullBatchTrainer:
                    if self.hoist_ax else None)
         self.model = GGAD(ds.feat_dim, self.embedding_dim).to(self.device)
 
-    def _post_init_halo(self) -> None:
+    def _post_init_sharded(self) -> None:
         """``mesh`` set: the halo-partitioned path
-        (``full_batch.py:258-330``). ``prepare_halo`` builds every shard
-        structure, training's included, at once, and always hoists Â·x
-        (as JAX's halo does); ``route`` is the per-shard product's (BCSR,
-        or ELL past the tile budget)."""
+        (``full_batch.py:258-330``) or the GSPMD one
+        (``full_batch.py:158-168,221-232``). ``prepare_halo`` /
+        ``prepare_gspmd`` build every shard structure, training's
+        included, at once, and always hoist Â·x (as JAX's mesh paths do);
+        ``route`` is the per-shard product's (the halo's BCSR, or ELL past
+        the tile budget; ``"coo"`` on GSPMD)."""
+        from ggad_tpu_torch.parallel.full_batch import prepare_gspmd
         from ggad_tpu_torch.parallel.halo_trainer import prepare_halo
         from ggad_tpu_torch.parallel.mesh import make_mesh
 
-        if self.dist_impl == "gspmd":
-            raise NotImplementedError(
-                "dist_impl='gspmd' (the GSPMD path, ggad_tpu/parallel/"
-                "full_batch.py) is not ported yet: ROADMAP item 5b")
-        if self.dist_impl != "halo":
+        if self.dist_impl not in ("halo", "gspmd"):
             raise ValueError(f"dist_impl must be 'halo' or 'gspmd', got "
                              f"{self.dist_impl!r}")
         if isinstance(self.mesh, int):
@@ -232,14 +235,20 @@ class FullBatchTrainer:
                                   device=self.device)
         self.device = self.mesh.device
         ds = self.dataset
-        self._halo = prepare_halo(ds, self.mesh, spmm_impl=self.spmm_impl,
-                                  spmm_dtype=self.spmm_dtype,
-                                  schedule=self.dist_schedule)
-        self.route = self._halo.route
+        if self.dist_impl == "gspmd":
+            # the all-gather layout carries no tiles: JAX forces its XLA
+            # op path here
+            self.spmm_impl = "coo"
+            self._sharded = prepare_gspmd(ds, self.mesh)
+        else:
+            self._sharded = prepare_halo(
+                ds, self.mesh, spmm_impl=self.spmm_impl,
+                spmm_dtype=self.spmm_dtype, schedule=self.dist_schedule)
+        self.route = self._sharded.route
         self.adj = self.raw_adj = self.features = self.ax = None
         self.seed_adj = self.aff_sub = None
-        self.seed_idx = self._halo.seed_idx.idx
-        self.normal_idx = self._halo.normal_idx.idx
+        self.seed_idx = self._sharded.seed_idx.idx
+        self.normal_idx = self._sharded.normal_idx.idx
         self.model = GGAD(ds.feat_dim, self.embedding_dim).to(self.device)
 
     # ------------------------------------------------------------------
@@ -251,9 +260,9 @@ class FullBatchTrainer:
         the subset is edge-parallel in f32 and K2 on rectangular tiles in
         bf16; on the ELL route it is rectangular sigma tables in both, and
         the seed subgraph gets its own (``[S × N]`` forward, ``[N × S]``
-        backward). raw_adj itself needs no tiles or tables. The halo path
-        builds all of it in ``prepare_halo``."""
-        if self.aff_sub is not None or self._halo is not None:
+        backward). raw_adj itself needs no tiles or tables. The halo and
+        GSPMD paths build all of it at preparation."""
+        if self.aff_sub is not None or self._sharded is not None:
             return
         ds = self.dataset
         graph = self.adj
@@ -326,8 +335,8 @@ class FullBatchTrainer:
     def compute_losses(self, noise: torch.Tensor) -> GGADLosses:
         """Train-branch forward and the three-term loss at the model's
         current parameters, with autograd recording."""
-        if self._halo is not None:
-            return self._halo.losses(
+        if self._sharded is not None:
+            return self._sharded.losses(
                 dict(self.model.named_parameters()), noise, self.mesh,
                 confidence_margin=self.confidence_margin,
                 pos_weight=self.pos_weight)
@@ -358,8 +367,8 @@ class FullBatchTrainer:
         given, are loaded into the trainer's model first."""
         if params is not None:
             self.model.load_state_dict(params)
-        if self._halo is not None:
-            scores = self._halo.scores(dict(self.model.named_parameters()),
+        if self._sharded is not None:
+            scores = self._sharded.scores(dict(self.model.named_parameters()),
                                        self.mesh)
             return scores[:self.dataset.n_nodes]
         out = self.model(self.adj, self.features, train=False, ax=self.ax)

@@ -24,8 +24,15 @@ asked for in one of three shapes: an epoch's first hop
 ``(num_batches, B, K1)``, its second hop ``(num_batches, B·K1, K2)``, and
 a scoring call's ``(n_chunks, eval_batch, K1)``.
 
-Not carried: ``mesh`` (data parallel), which comes with the multi-device
-slice.
+With ``mesh`` (a shard count D or a 1-D ``parallel.mesh`` communicator)
+the batch axis is data parallel (``parallel.minibatch_dp``, JAX's
+``minibatch.py:99-123``): D must divide ``batch_size + n_anom_per_batch``
+and ``eval_batch``; the feature table, the neighbor table and the
+parameters are replicated (held once on a local mesh); each step's
+``[B]`` ids and its draws are sliced by shard, so D shards see the
+single-device draws; ``score_nodes`` shards each ``eval_batch`` chunk and
+all-gathers the scores. Under the ``"dist"`` communicator rank 0 alone
+writes the best-validation checkpoint, and every rank waits for it.
 """
 
 from __future__ import annotations
@@ -53,6 +60,11 @@ from ggad_tpu_torch.ops.metrics import (
     roc_auc,
 )
 from ggad_tpu_torch.ops.normalize import row_normalize_smoothed
+from ggad_tpu_torch.parallel.mesh import make_mesh
+from ggad_tpu_torch.parallel.minibatch_dp import (
+    check_divides,
+    dp_minibatch_losses,
+)
 from ggad_tpu_torch.sampler.neighbor import NeighborTable
 from ggad_tpu_torch.train.checkpoint import Checkpointer
 
@@ -105,9 +117,17 @@ class MiniBatchTrainer:
     initial_params: Optional[Any] = None   # flax tree or state_dict
     draws: Optional[Draws] = None
     device: DeviceLike = None
+    mesh: Optional[Any] = None    # shard count D or a 1-D parallel.mesh
+                                  # communicator → data-parallel batches
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.mesh is not None:
+            if isinstance(self.mesh, int):
+                self.mesh = make_mesh(self.mesh, device=self.device)
+            check_divides(self.mesh, self.batch_size + self.n_anom_per_batch,
+                          self.eval_batch)
+            self.device = self.mesh.device
         self.table = NeighborTable.from_scipy(self.adj, device=self.device)
         self.features = row_normalize_smoothed(self.features)
         self.feats = torch.as_tensor(
@@ -178,7 +198,12 @@ class MiniBatchTrainer:
     def compute_losses(self, batch: torch.Tensor, u1: torch.Tensor,
                        u2: torch.Tensor) -> MiniBatchGGADLosses:
         """Train-branch forward and loss at the model's current
-        parameters, with autograd recording."""
+        parameters, with autograd recording (over the mesh's shards when
+        ``mesh`` is set)."""
+        if self.mesh is not None:
+            return dp_minibatch_losses(self.model, self.feats, self.table,
+                                       batch, u1, u2, self.n_anom_per_batch,
+                                       self.mesh)
         out = self.model(self.feats, self.table, batch,
                          self.n_anom_per_batch, True, u1=u1, u2=u2)
         return minibatch_ggad_losses(out, self.n_anom_per_batch)
@@ -228,14 +253,33 @@ class MiniBatchTrainer:
         if params is None:
             params = dict(self.model.state_dict())
         probs = torch.empty(n_chunks * bs, device=self.device)
-        rows = max(EVAL_ROWS_PER_PASS // bs, 1) * bs
-        for r0 in range(0, n_chunks * bs, rows):
-            sl = slice(r0, r0 + rows)
-            out = torch.func.functional_call(
-                self.model, params, (self.feats, self.table, ids[sl], 0,
-                                     False), {"u1": u[sl]})
-            probs[sl] = torch.sigmoid(out.scores)
+        step = max(EVAL_ROWS_PER_PASS // bs, 1)
+        for c0 in range(0, n_chunks, step):
+            c = min(step, n_chunks - c0)
+            sl = slice(c0 * bs, (c0 + c) * bs)
+            probs[sl] = self._score_rows(params, ids[sl].view(c, bs),
+                                         u[sl].view(c, bs, -1))
         return probs[:n].cpu().numpy()
+
+    def _score_rows(self, params, ids: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+        """Sigmoid scores of the ``[c, bs]`` ids with draws ``[c, bs, K1]``;
+        with ``mesh``, each shard scores its slice of every chunk and one
+        all-gather returns them in order."""
+        mesh = self.mesh
+        if mesh is not None:
+            c, bs = ids.shape
+            d = mesh.n_shards
+            ids = ids.view(c, d, bs // d).transpose(0, 1)[mesh.shards]
+            u = u.view(c, d, bs // d, -1).transpose(0, 1)[mesh.shards]
+        out = torch.func.functional_call(
+            self.model, params, (self.feats, self.table, ids.reshape(-1), 0,
+                                 False), {"u1": u.reshape(-1, u.shape[-1])})
+        probs = torch.sigmoid(out.scores)
+        if mesh is None:
+            return probs
+        probs = mesh.all_gather(probs.view(ids.shape[0], -1))
+        return probs.view(d, c, bs // d).transpose(0, 1).reshape(-1)
 
     def metrics_on(self, params: Optional[Mapping[str, torch.Tensor]],
                    node_ids, labels) -> dict:
@@ -283,11 +327,16 @@ class MiniBatchTrainer:
                 if val["auc"] > best_auc:
                     best_auc, best_epoch = val["auc"], epoch
                     best_params = self.params()
-                    if ckpt is not None:
+                    # replicated: under the "dist" communicator rank 0
+                    # alone writes and prunes the shared directory
+                    if ckpt is not None and getattr(self.mesh, "rank",
+                                                    0) == 0:
                         ckpt.save(epoch, {
                             "params": {k: v.cpu()
                                        for k, v in best_params.items()},
                             "metrics": {"val_auc": float(best_auc)}})
+                    if ckpt is not None and self.mesh is not None:
+                        self.mesh.barrier()
                 if verbose:
                     print(f"epoch {epoch:4d}  val AUROC {val['auc']:.4f}  "
                           f"AP {val['ap']:.4f}  loss {rec['loss']:.4f}")

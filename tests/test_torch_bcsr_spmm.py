@@ -125,8 +125,9 @@ def test_plain_bcsr_spmm_empty_tile_row(dtype):
 
 
 def test_spmm_dispatch_and_coo_path():
-    """``spmm`` picks the tiles on a BCSRGraph unless impl='coo'; both
-    equal the dense product to 1e-5."""
+    """``spmm`` picks the tiles on a BCSRGraph unless impl='coo' (or JAX's
+    name for it, 'xla'); all equal the dense product to 1e-5, and an
+    unknown impl raises."""
     p_adj, _ = both_adj(200, 0.05, 9)
     b = pb.as_bcsr_graph(p_adj)
     x = torch.from_numpy(np.random.default_rng(0).normal(
@@ -134,14 +135,14 @@ def test_spmm_dispatch_and_coo_path():
     dense = sp.coo_matrix((p_adj.host_coo()[2], p_adj.host_coo()[:2]),
                           shape=(200, 200)).toarray()
     expect = dense @ x.numpy()
-    for impl in ("auto", "coo"):
+    for impl in ("auto", "coo", "xla"):
         np.testing.assert_allclose(spmm(b, x, impl=impl).numpy(), expect,
                                    rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(
         spmm_coo(p_adj.row, p_adj.col, p_adj.val, x, 200).numpy(), expect,
         rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
-        spmm(b, x, impl="xla")
+        spmm(b, x, impl="dense")
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -807,3 +807,108 @@ def test_halo_train_step_on_the_card_matches_the_cpu(cuda, dtype):
     card, cpu = res[str(cuda)], res["cpu"]
     np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(card[1], cpu[1], rtol=1e-4, atol=1e-4)
+
+
+# -- the rest of the multi-device paths: DP minibatch, GSPMD, 2-D TP ------
+
+def _launches():
+    return pb.bcsr_spmm.launches, pk2.bcsr_sddmm_colsum.launches
+
+
+def test_dp_minibatch_step_on_the_card_matches_the_cpu(cuda):
+    """``MiniBatchTrainer(mesh=4)``: two steps from the seeded init on the
+    same batches and draws, then scores on one draw; losses, gradients and
+    scores on the card against the CPU within 1e-4; K1 = K2 = 0."""
+    import scipy.sparse as sp
+
+    from ggad_tpu_torch.datasets.splits import minibatch_split
+    from ggad_tpu_torch.datasets.synthetic import synthetic_gad
+    from ggad_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    ds = synthetic_gad(n_nodes=2000, avg_degree=8, feat_dim=17, seed=3)
+    adj = ds.adj + sp.eye(ds.n_nodes, format="csr", dtype=np.float32)
+    idx_train, idx_valid, idx_test, labels, idx_anom = minibatch_split(
+        ds.ano_labels, seed=0, pseudo_anomaly_frac=0.1)
+    gen = torch.Generator().manual_seed(0)
+    u1 = torch.rand(2, 200, 16, generator=gen)
+    u2 = torch.rand(2, 200 * 16, 8, generator=gen)
+    ue = torch.rand(2, 1024, 16, generator=gen)
+    res = {}
+    for device in (cuda, "cpu"):
+        tr = MiniBatchTrainer(
+            adj=adj, features=ds.features, labels=labels,
+            idx_train=idx_train, idx_anomaly=idx_anom, idx_valid=idx_valid,
+            idx_test=idx_test, emb_dim=64, num_batches=2, eval_batch=1024,
+            mesh=4, device=device)
+        batches = tr.draw_batches(np.random.default_rng(0))
+        before = _launches()
+        losses, grads = [], []
+        for i in range(2):
+            losses.append([float(x) for x in tr.train_step(
+                batches[i], u1[i].to(tr.device), u2[i].to(tr.device))])
+            grads.append({k: p.grad.cpu()
+                          for k, p in tr.model.named_parameters()})
+        tr.draws = lambda shape: ue[:shape[0]]    # one draw on both
+        scores = tr.score_nodes(None, idx_valid[:2048])
+        assert _launches() == before
+        res[str(device)] = (np.array(losses), grads, scores)
+    card, cpu = res[str(cuda)], res["cpu"]
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4, atol=1e-4)
+    for g_card, g_cpu in zip(card[1], cpu[1]):
+        for k, v in g_cpu.items():
+            torch.testing.assert_close(g_card[k], v, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card[2], cpu[2], rtol=1e-4, atol=1e-4)
+
+
+def test_gspmd_step_on_the_card_matches_the_cpu(cuda):
+    """``FullBatchTrainer(mesh=4, dist_impl="gspmd")``: two steps and an
+    evaluation with fixed noise; losses and scores on the card against the
+    CPU within 1e-4·(1 + |CPU|); K1 = K2 = 0 (the all-gather layout)."""
+    from ggad_tpu_torch.datasets.synthetic import synthetic_gad
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    ds = synthetic_gad(n_nodes=900, avg_degree=10, feat_dim=24,
+                       n_communities=3, seed=4)
+    res = {}
+    for device in (cuda, "cpu"):
+        tr = FullBatchTrainer(ds, embedding_dim=48, mesh=4,
+                              dist_impl="gspmd", noise_mean=0.02,
+                              noise_std=0.0, device=device)
+        assert tr.route == "coo"
+        tr.model.load_state_dict(tr.init())
+        gen = torch.Generator(tr.device).manual_seed(0)
+        before = _launches()
+        losses = [[float(x) for x in tr.train_step(gen)] for _ in range(2)]
+        scores = tr.eval_scores()
+        assert _launches() == before
+        res[str(device)] = (np.array(losses), scores)
+    card, cpu = res[str(cuda)], res["cpu"]
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-4, atol=1e-4)
+
+
+def test_tp_2d_step_on_the_card_matches_the_cpu(cuda):
+    """``sharded_train_step_2d`` on a (2, 2) ``('nodes', 'model')`` mesh,
+    2 steps from the seeded init with fixed noise: the loss on the card
+    against the CPU and against the 1-D step within 1e-4 relative."""
+    from ggad_tpu_torch.datasets.synthetic import synthetic_gad
+    from ggad_tpu_torch.parallel.full_batch import (
+        sharded_train_step,
+        sharded_train_step_2d,
+    )
+    from ggad_tpu_torch.parallel.mesh import make_mesh
+
+    ds = synthetic_gad(n_nodes=900, avg_degree=10, feat_dim=24, seed=4)
+    noises = [torch.randn(len(ds.abnormal_label_idx), 48,
+                          generator=torch.Generator().manual_seed(i))
+              for i in range(2)]
+    got = {}
+    for device in (cuda, "cpu"):
+        mesh = make_mesh(4, device=device, axis_names=("nodes", "model"),
+                         shape=(2, 2))
+        got[str(device)] = sharded_train_step_2d(mesh, ds, n_h=48,
+                                                 n_steps=2, noises=noises)
+    one_d = sharded_train_step(4, ds, n_h=48, n_steps=2, noises=noises,
+                               device=cuda)
+    assert got[str(cuda)] == pytest.approx(got["cpu"], rel=1e-4)
+    assert got[str(cuda)] == pytest.approx(one_d, rel=1e-4)

@@ -20,7 +20,8 @@ sides:
     round the tiles and operands to bf16; the halo also rounds the
     hoisted Â·x, which the single-device path computes in f32);
   * the CLI's ``--mesh_devices 4 --device cpu`` against its single-device
-    run, and ``dist_impl="gspmd"`` raising.
+    run; ``dist_impl="gspmd"`` building the GSPMD trainer, and the
+    ``dist_impl`` / ``--dist_schedule`` checks raising.
 """
 
 import json
@@ -259,10 +260,12 @@ def test_cli_mesh_devices_matches_single_device(capsys):
     assert halo["ap"] == pytest.approx(single["ap"], abs=1e-4)
 
 
-def test_gspmd_is_not_ported():
+def test_dist_impl_gspmd_builds_a_gspmd_trainer():
+    from ggad_tpu_torch.parallel.full_batch import GSPMDSetup
+
     ds = synthetic_gad(**DS_KW)
-    with pytest.raises(NotImplementedError, match="5b"):
-        FullBatchTrainer(ds, mesh=2, dist_impl="gspmd", device="cpu")
+    tr = FullBatchTrainer(ds, mesh=2, dist_impl="gspmd", device="cpu")
+    assert isinstance(tr._sharded, GSPMDSetup) and tr.route == "coo"
     with pytest.raises(ValueError):
         FullBatchTrainer(ds, mesh=2, dist_impl="ring", device="cpu")
     with pytest.raises(SystemExit):
