@@ -7,7 +7,10 @@ Phases (any failure raises and the script exits non-zero):
   1. require a CUDA card of capability (9, 0) or above; print its name and
      power limit as ``nvidia-smi`` gives them;
   2. build the hand-written kernels from ``ggad_tpu_torch/csrc`` (one
-     ``nvcc`` per source, all started together) and print the build time;
+     ``nvcc`` per source) and the host graph builder
+     (``csrc/graphbuild.cpp``, ``g++``), all started together, and print
+     the build times; ``native.available()`` must hold (a compiler is
+     present here, so a Python route would be a failure);
   3. serve the photo-shaped graph (``bench.py:45-49``) at n_h 300 through
      ``serve.Scorer``: 5 f32 and 5 bf16 requests from a checkpoint of the
      port's seeded init, with the kernels' launch counters set to 0 just
@@ -34,7 +37,11 @@ Phases (any failure raises and the script exits non-zero):
      (``load_dataset("dgraphfin")``'s synthetic fallback, 3,700,550 nodes,
      17 features) through ``MiniBatchTrainer`` at emb 64, fanouts 16/8,
      batch 150 + 50, 150 batches an epoch: the host build timed by part
-     (load, ``adj + I``, split, the trainer's preparation) and the device
+     (load, ``adj + I``, split, the trainer's preparation), the host
+     library's entry points it called (the load's ``symmetrize`` and
+     ``build_indptr`` must run; ``NeighborTable.from_scipy`` reaches no
+     sort), the same load on the Python route (scipy; the adjacency must
+     be equal) and the device
      memory the table and features hold; ``train()`` for 2 epochs with
      validation at the first and the last and the test metrics; the step
      median (CUDA events), one epoch's wall time, ``score_nodes`` over the
@@ -141,6 +148,26 @@ Phases (any failure raises and the script exits non-zero):
      other leg none; the CLI's ``--model ggad-minibatch --dp_devices 4``
      and ``--mesh_devices 4 --dist_impl gspmd`` on the card, their last
      JSON lines parsed;
+ 8d. the halo path on the full Amazon shape (``synthetic_like("Amazon")``:
+     11,944 nodes, ≈4.4M entries, 25 features) at n_h 300, f32: the
+     elliptic shape's ``multilevel_partition`` at D 4 on the native route
+     and on the Python route (labels equal, both times printed);
+     ``reorder_lp(ds, 4)`` on the native route (its time, the host
+     library's calls, the cut fraction); ``FullBatchTrainer(mesh=4)`` on
+     the local communicator, BCSR, sched wire: prepare + 3 steps + an
+     evaluation with exact K1/K2 counts, losses and scores within
+     1e-4·(1 + |ref|) of the single-device trainer from the same init and
+     noise, the step median beside the single-device one (CUDA events),
+     prepare time, held and peak memory, the plan's widths and shard 0's
+     rect tile counts; after phase 9 every shard's rect K1 at d 300 held
+     against its plain version, shard 0's timed against its bound, the
+     plain version and ``torch.sparse.mm`` (the kernels line's
+     ``amazon_halo_rect``);
+ 8e. ``profile_dir``: photo f32 ``FullBatchTrainer.train()`` for 6 epochs
+     (an evaluation every 3) with ``profile_dir`` set; its Chrome trace
+     (epochs 2 to 4) is parsed: K1's kernel events, found by the kernel's
+     symbol, must equal the launch counter read over the same window (2 a
+     step and 1 for epoch 3's evaluation), and K2 has none;
  9. hold each kernel against its plain PyTorch version on the card, in f32
      and bf16: K1 at the photo serving shapes, on the transposed tile set
      and on the rectangular sets of the labeled-column subset, at the tile
@@ -165,8 +192,9 @@ Phases (any failure raises and the script exits non-zero):
      against the wall time (the card's busy share), the device operations
      a call and the largest kernels; the photo step's kernels alone and the ELL step's table
      products alone; a TAM epoch and its parts (K1, the einsums, the ELL
-     affinities) alone. The profiler runs only after the timed phases 3
-     to 8c, since it adds to the host's launch time;
+     affinities) alone; the Amazon halo step (8d). The profiler runs only
+     after the timed phases 3 to 8d, since it adds to the host's launch
+     time (8e's trace comes after them too);
  11. print the kernels' JSON line, the card line and, last,
      ``{"ok": true, "device": {...}}``.
 
@@ -214,6 +242,7 @@ EXACT_SCORES = 4096                           # exact eval nodes, 150 a slice
 MASK2_LIMIT = 8e9                             # bytes of f32 mask2 allowed
 RWR_SEEDS, RWR_SIZE, RWR_WALK = 4096, 4, 12
 KERNEL_SOURCES = ["bcsr_spmm", "bcsr_sddmm"]
+HOST_SOURCE = "graphbuild"                    # csrc/graphbuild.cpp, g++
 K1_REPLACES = "ggad_tpu/ops/pallas_spmm.py:96"
 STUDY_REPLACES = "scripts/tile_rows_study.py:52"   # K1's body, swept
 SWEEP_TILE_ROWS = (128, 256, 512, 1024)    # tile_rows_study.py:105 + 1024
@@ -277,6 +306,14 @@ TP_SHAPE = (2, 2)                             # ('nodes', 'model')
 TP_STEPS = 2
 TP_TOL = 1e-4                                 # tests/test_parallel.py:614
 DRYRUN_D = 4
+# phase 8d: the halo path on the full Amazon shape after reorder_lp
+AMAZON_D = 4
+AMAZON_STEPS = 3                              # steps, then one evaluation
+AMAZON_SCHEDULE = "sched"
+# phase 8e: profile_dir over train(); epochs 2..4 traced, epoch 3 evaluated
+PROFILE_EPOCHS = 6
+PROFILE_EVAL_EVERY = 3
+K1_SYMBOL, K2_SYMBOL = "csr_spmm_kernel", "csr_sddmm_kernel"
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
 
@@ -315,9 +352,11 @@ def device_ms(fn, iters: int = 20) -> tuple[float, dict, float]:
 
     fn()
     torch.cuda.synchronize()
-    # a session now and then returns no device activity at all (seen once
-    # in a dozen runs, on a call that launched kernels in every other
-    # run); such a session is taken again, at most twice
+    # a session now and then returns no device activity, or only part of
+    # it (seen once in a dozen runs each: no kernel, or 3 of 20 calls'
+    # kernels); every call launches at least one operation on the card, so
+    # a session that saw fewer than one a call is taken again, at most
+    # twice
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -327,22 +366,34 @@ def device_ms(fn, iters: int = 20) -> tuple[float, dict, float]:
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total and not e.is_user_annotation]
-        if events:
+        seen = sum(e.count for e in events)
+        if seen >= iters:
             break
-        print(f"  profiler session {attempt + 1} saw no kernel on the card")
+        print(f"  profiler session {attempt + 1} saw {seen} device "
+              f"operations in {iters} calls")
     else:
-        raise RuntimeError("the profiler saw no kernel on the card")
+        raise RuntimeError("the profiler missed the card's operations")
     per = {e.key: e.self_device_time_total / iters for e in events}
     return (sum(per.values()) / 1e3, per,
             sum(e.count for e in events) / iters)
 
 
 def build_kernels() -> None:
+    """The kernels' ``nvcc`` builds and the host library's ``g++`` build,
+    all started together."""
+    from ggad_tpu_torch import native
     from ggad_tpu_torch.ops import _build
 
+    def host_build():
+        t = time.perf_counter()
+        path, _ = _build.build_host(HOST_SOURCE)
+        return path, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        host = pool.submit(host_build)
         results = list(pool.map(_build.build, KERNEL_SOURCES))
+        host_path, host_s = host.result()
     for name, (path, log) in zip(KERNEL_SOURCES, results):
         print(f"built {name} -> {path.name}")
         for line in log.splitlines():
@@ -350,6 +401,13 @@ def build_kernels() -> None:
                 print(f"  ptxas: {line.strip()}")
         _build.load(name)
     print(f"kernel build: {time.perf_counter() - t0:.3f} s")
+    if not native.available():
+        raise RuntimeError("no C++ compiler: the host library would take "
+                           "its Python routes")
+    native.load()
+    print(f"built {HOST_SOURCE} -> {host_path.name} with "
+          f"{_build.cxx_path()} in {host_s:.3f} s (host library, "
+          f"native.available() {native.available()})")
 
 
 def bound_ms(tiles, n_rows: int, dense_bytes: int, design_bytes: int,
@@ -1184,6 +1242,7 @@ def minibatch_phase(cuda, k1: dict, k2: dict, later: list) -> tuple:
     import scipy.sparse as sp
     import torch
 
+    from ggad_tpu_torch import native
     from ggad_tpu_torch.datasets.loaders import load_dataset
     from ggad_tpu_torch.datasets.splits import minibatch_split_for
     from ggad_tpu_torch.ops import metrics as pm
@@ -1192,6 +1251,7 @@ def minibatch_phase(cuda, k1: dict, k2: dict, later: list) -> tuple:
     from ggad_tpu_torch.train.minibatch import MiniBatchTrainer
 
     bcsr_spmm.launches = bcsr_sddmm_colsum.launches = 0
+    native.reset_calls()
     t_phase = t0 = time.perf_counter()
     ds = load_dataset("dgraphfin")       # the synthetic fallback, scale 1
     t1 = time.perf_counter()
@@ -1210,6 +1270,10 @@ def minibatch_phase(cuda, k1: dict, k2: dict, later: list) -> tuple:
                           valid_epochs=MB_EPOCHS - 1, device=cuda)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
+    ran = {k: n for k, n in native.calls.items() if n}
+    if not (ran.get("symmetrize") and ran.get("build_indptr")):
+        raise RuntimeError(f"the DGraph host build took the Python route: "
+                           f"host library calls {native.calls}")
     held = (torch.cuda.memory_allocated() - base) / 1e6
     table_mb = (tr.table.indptr.numel() + tr.table.indices.numel()) * 4e-6
     print(f"minibatch graph (DGraph-shaped): nodes={ds.n_nodes} "
@@ -1220,9 +1284,27 @@ def minibatch_phase(cuda, k1: dict, k2: dict, later: list) -> tuple:
     print(f"  host build: load_dataset {t1 - t0:.3f} s, adj + I "
           f"{t2 - t1:.3f} s, minibatch_split_for {t3 - t2:.3f} s, trainer "
           f"preparation (smoothing, pools, table and features to the card) "
-          f"{t4 - t3:.3f} s")
+          f"{t4 - t3:.3f} s; host library entry points called {ran} "
+          f"(none else)")
     print(f"  device memory held: {held:.1f} MB (table {table_mb:.1f} MB, "
           f"features {tr.feats.numel() * 4e-6:.1f} MB)")
+    # the same load on the Python route (scipy's maximum(adj.T)): the
+    # same adjacency, and what the host library saves
+    available = native.available
+    native.available = lambda: False
+    try:
+        t0 = time.perf_counter()
+        py = load_dataset("dgraphfin").adj
+        t_py = time.perf_counter() - t0
+    finally:
+        native.available = available
+    if not all(np.array_equal(getattr(py, k), getattr(ds.adj, k))
+               for k in ("indptr", "indices", "data")):
+        raise RuntimeError("the DGraph adjacency differs between the "
+                           "native and the Python route")
+    print(f"  load_dataset on the Python route (scipy's maximum(adj.T)) "
+          f"{t_py:.3f} s, native {t1 - t_phase:.3f} s; adjacency equal")
+    del py
 
     t0 = time.perf_counter()
     res = tr.train()
@@ -2988,6 +3070,250 @@ def gspmd_phase(cuda, k1: dict, k2: dict, later: list) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def amazon_halo_phase(cuda, k1: dict, k2: dict, later: list):
+    """Phase 8d: the partitioner's two routes on the elliptic shape, then
+    the halo path on the full Amazon shape after a native ``reorder_lp``
+    against the single-device trainer. Returns the halo trainer, whose
+    rect sets ``amazon_rect_checks`` times after the timed phases."""
+    import numpy as np
+    import torch
+
+    from ggad_tpu_torch import native
+    from ggad_tpu_torch.datasets.partition import (
+        cut_fraction,
+        multilevel_partition,
+        reorder_lp,
+    )
+    from ggad_tpu_torch.datasets.synthetic import synthetic_like
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the multilevel partitioner on the native and the Python route
+    ell = synthetic_like("elliptic")
+    block = -(-ell.n_nodes // AMAZON_D)
+    native.reset_calls()
+    t_native = []
+    for _ in range(2):          # the first call also pays scipy's warm-up
+        t0 = time.perf_counter()
+        lab_native = multilevel_partition(ell.adj, AMAZON_D,
+                                          exact_block=block)
+        t_native.append(time.perf_counter() - t0)
+    calls = {k: n for k, n in native.calls.items() if n}
+    available = native.available
+    native.available = lambda: False          # a host with no compiler
+    try:
+        t0 = time.perf_counter()
+        lab_python = multilevel_partition(ell.adj, AMAZON_D,
+                                          exact_block=block)
+        t_python = time.perf_counter() - t0
+    finally:
+        native.available = available
+    if not (calls.get("partition_refine") and calls.get("hem_match")):
+        raise RuntimeError(f"multilevel_partition took no native call: "
+                           f"{native.calls}")
+    if not np.array_equal(lab_native, lab_python):
+        raise RuntimeError("native and Python partitions differ")
+    print(f"multilevel_partition, elliptic shape ({ell.n_nodes} nodes, "
+          f"{ell.adj.nnz} entries), D {AMAZON_D}: native {t_native[1]:.3f} "
+          f"s (first call {t_native[0]:.3f} s; calls over both {calls}), "
+          f"Python route {t_python:.3f} s; labels equal")
+    del ell
+
+    t0 = time.perf_counter()
+    ds = synthetic_like("Amazon")
+    t_gen = time.perf_counter() - t0
+    native.reset_calls()
+    t0 = time.perf_counter()
+    lp = reorder_lp(ds, AMAZON_D)
+    t_lp = time.perf_counter() - t0
+    calls = {k: n for k, n in native.calls.items() if n}
+    blocks = np.arange(ds.n_nodes) // -(-ds.n_nodes // AMAZON_D)
+    print(f"Amazon shape: {ds.n_nodes} nodes, {ds.adj.nnz} entries, "
+          f"{ds.feat_dim} features, {len(labeled(ds))} labeled (generator "
+          f"{t_gen:.3f} s); reorder_lp (multilevel, D {AMAZON_D}, native) "
+          f"{t_lp:.3f} s, host library calls {calls}; cut fraction of the "
+          f"{AMAZON_D} row blocks {cut_fraction(ds.adj, blocks):.4f} -> "
+          f"{cut_fraction(lp.adj, blocks):.4f}")
+    del ds
+
+    kw = dict(embedding_dim=N_H, noise_mean=0.02, noise_std=0.01)
+    native.reset_calls()
+    t0 = time.perf_counter()
+    ref = FullBatchTrainer(lp, device=cuda, **kw)
+    ref.prepare_training()
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    calls = {k: n for k, n in native.calls.items() if n}
+    init = ref.init()
+    gen = torch.Generator(cuda).manual_seed(9)
+    noises = [ref.draw_noise(gen) for _ in range(AMAZON_STEPS)]
+    r = halo_steps(ref, init, noises, timed=True)
+    print(f"Amazon single-device reference ({ref.route}, tile height "
+          f"{ref.adj.tiles.fwd.tile_height}): prepare {t_ref:.3f} s (host "
+          f"library calls {calls}); step ms {[round(x, 3) for x in r[2]]}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    native.reset_calls()
+    t0 = time.perf_counter()
+    tr = FullBatchTrainer(lp, mesh=AMAZON_D, dist_schedule=AMAZON_SCHEDULE,
+                          device=cuda, **kw)
+    torch.cuda.synchronize()
+    prep = time.perf_counter() - t0
+    calls = {k: n for k, n in native.calls.items() if n}
+    held = (torch.cuda.memory_allocated() - base) / 1e6
+    h = halo_steps(tr, init, noises, timed=True)
+    n1, n2 = read_launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    counts = (AMAZON_D * (HALO_K1["prepare"] + AMAZON_STEPS * HALO_K1["step"]
+                          + HALO_K1["eval"]),
+              AMAZON_D * AMAZON_STEPS * HALO_K2_STEP)
+    if tr.route != "bcsr" or (n1, n2) != counts:
+        raise RuntimeError(f"halo Amazon: route {tr.route}, K1 {n1}, K2 "
+                           f"{n2}; expected bcsr, {counts}")
+    path = f"halo Amazon D{AMAZON_D} {AMAZON_SCHEDULE}"
+    k1["float32"]["paths"][path] = n1
+    k2["float32"]["paths"][path] = n2
+    d = (assert_close_rel(h[0], r[0], LOSS_TOL, "Amazon halo losses"),
+         assert_close_rel(h[1], r[1], SCORE_TOL, "Amazon halo scores"))
+    print(f"{path} float32: prepare {prep:.3f} s (host library calls "
+          f"{calls}), device memory held {held:.1f} MB, peak {peak:.1f} MB "
+          f"above the start; K1 {n1}, K2 {n2} launches ({AMAZON_STEPS} "
+          f"steps + an evaluation); step ms {[round(x, 3) for x in h[2]]} "
+          f"(median {statistics.median(h[2]):.3f}; single-device "
+          f"{statistics.median(r[2]):.3f}); vs single-device losses / "
+          f"scores max|d| {d[0]:.3g} / {d[1]:.3g} (tol {LOSS_TOL}·(1 + "
+          f"|ref|))")
+    for line in halo_layout_lines(tr):
+        print(line)
+    later.append(partial(busy_line,
+                         f"halo step D{AMAZON_D} Amazon {AMAZON_SCHEDULE}",
+                         halo_step_fn(tr, noises[0]),
+                         statistics.median(h[2]), AMAZON_STEPS))
+    print(f"Amazon halo phase {time.perf_counter() - t_phase:.1f} s")
+    return tr
+
+
+def amazon_rect_checks(tr, k1: dict) -> None:
+    """Every shard's Amazon rect sets at d 300 held against their plain
+    versions (the local and remote forward sets and their transposes);
+    shard 0's forward sets timed against the bound, the plain version and
+    ``torch.sparse.mm``."""
+    import torch
+
+    setup = tr._sharded
+    t, plan = setup.tiles, setup.plan
+    R, W = plan.rows_per_shard, plan.buf_width
+    gen = torch.Generator(tr.device).manual_seed(6)
+    h, buf, g = (torch.randn(n, N_H, device=tr.device, generator=gen)
+                 for n in (R, W, R))
+    keep = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "design_bound_ms", "library_ms", "max_abs_err")
+    recs, errs = {}, []
+    for name, per_shard, x, n_out in (
+            ("local", t.loc, h, R), ("remote", t.fwd, buf, R),
+            ("local transposed", t.locT, g, R),
+            ("remote transposed", t.bwd, g, W)):
+        for i, tiles in enumerate(per_shard):
+            timed = i == 0 and "transposed" not in name
+            rec = check_k1(tiles, x, "float32", n_out=n_out, timed=timed)
+            errs.append(rec["max_abs_err"])
+            if timed:
+                recs[f"{name} d{N_H}"] = {k: rec[k] for k in keep}
+                print(f"K1 Amazon halo {name} float32 shard 0: "
+                      f"T={tiles.n_tiles} tile height {tiles.tile_height} "
+                      f"{tiles.n_rows}x{tiles.n_cols} d={N_H}: "
+                      f"{json.dumps(recs[f'{name} d{N_H}'])}")
+    k1["float32"]["amazon_halo_rect"] = recs
+    k1["float32"]["max_abs_err"] = max(k1["float32"]["max_abs_err"], *errs)
+    print(f"Amazon halo rect sets: {len(errs)} K1 checks on {len(t.loc)} "
+          f"shards, max|d| {max(errs):.3g}")
+
+
+def profile_dir_phase(cuda, k1: dict, k2: dict) -> None:
+    """Phase 8e: ``train()`` with ``profile_dir`` on the photo shape; the
+    Chrome trace's K1 kernel events (by the kernel's symbol) equal the
+    launch counter read over the traced window, and K2 has none."""
+    import torch
+
+    from ggad_tpu_torch.datasets.synthetic import photo_bench
+    from ggad_tpu_torch.train import full_batch
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    marks = {}
+
+    class CountingWindow(full_batch.ProfileWindow):
+        """The trainer's window, reading the launch counters when the
+        trace starts and when it stops."""
+
+        def before(self, epoch):
+            idle = self.prof is None
+            super().before(epoch)
+            if idle and self.prof is not None:
+                marks["start"] = read_launches()
+
+        def after(self, epoch, last_value):
+            tracing = self.prof is not None
+            super().after(epoch, last_value)
+            if tracing and self.prof is None:
+                marks["stop"] = read_launches()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = photo_bench()
+    window = full_batch.ProfileWindow
+    full_batch.ProfileWindow = CountingWindow
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            tr = FullBatchTrainer(ds, embedding_dim=N_H,
+                                  num_epoch=PROFILE_EPOCHS,
+                                  eval_every=PROFILE_EVAL_EVERY,
+                                  profile_dir=out, device=cuda)
+            reset_launches()
+            t0 = time.perf_counter()
+            res = tr.train()
+            wall = time.perf_counter() - t0
+            n1, n2 = read_launches()
+            files = os.listdir(out)
+            with open(os.path.join(out, files[0])) as f:
+                trace = json.load(f)["traceEvents"]
+            size = os.path.getsize(os.path.join(out, files[0]))
+    finally:
+        full_batch.ProfileWindow = window
+    kernels = [e for e in trace if e.get("cat") == "kernel"]
+    ev1 = sum(K1_SYMBOL in e["name"] for e in kernels)
+    ev2 = sum(K2_SYMBOL in e["name"] for e in kernels)
+    steps = sorted(int(e["name"].split()[1]) for e in trace
+                   if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("train_step "))
+    w1 = marks["stop"][0] - marks["start"][0]
+    w2 = marks["stop"][1] - marks["start"][1]
+    want = 3 * 2 + 1                # 3 steps of 2, epoch 3's evaluation
+    if (files != ["trace_steps_2_4.json"] or steps != [2, 3, 4]
+            or (ev1, w1) != (want, want) or (ev2, w2) != (0, 0)):
+        raise RuntimeError(f"profile_dir: files {files}, traced steps "
+                           f"{steps}, K1 events {ev1} / counter {w1}, K2 "
+                           f"events {ev2} / counter {w2}; expected K1 "
+                           f"{want}, K2 0")
+    path = "profile_dir photo train()"
+    k1["float32"]["paths"][path] = n1
+    k2["float32"]["paths"][path] = n2
+    device_us = sum(e.get("dur", 0) for e in kernels)
+    print(f"profile_dir: photo f32 train() {PROFILE_EPOCHS} epochs "
+          f"({wall:.3f} s, final AUROC {res.final_auc:.4f}), K1 {n1} "
+          f"launches in all; trace {files[0]} ({size / 1e6:.1f} MB, "
+          f"{len(trace)} events, steps {steps}): K1 kernel events {ev1} = "
+          f"counter over the window {w1}, K2 {ev2} = {w2}; {len(kernels)} "
+          f"kernels, {device_us / 1e3:.3f} ms of kernel time in the window")
+
+
 def kernel_record(name, source, replaces, rec) -> dict:
     paths = rec.get("paths", {})
     out = {"name": name, "route": "cuda", "source": source,
@@ -2999,7 +3325,7 @@ def kernel_record(name, source, replaces, rec) -> dict:
            "design_bound_ms": rec["design_bound_ms"],
            "gather_mb": rec["gather_mb"], "gather_tb_s": rec["gather_tb_s"],
            "library_ms": rec["library_ms"]}
-    for key in ("at_d745", "tam_blockdiag", "halo_rect"):
+    for key in ("at_d745", "tam_blockdiag", "halo_rect", "amazon_halo_rect"):
         if key in rec:
             out[key] = rec[key]
     if "tile_rows_sweep" in rec:
@@ -3045,11 +3371,14 @@ def main() -> int:
     tam_pair = tam_phase(cuda, k1, k2, later)
     halo = halo_phase(cuda, k1, k2, later)
     gspmd_phase(cuda, k1, k2, later)
+    amazon = amazon_halo_phase(cuda, k1, k2, later)
+    profile_dir_phase(cuda, k1, k2)
     kernel_phase(cuda, k1, k2)
     tam_kernel_checks(tam_pair, k1)
     for dtype, tr in halo.items():
         halo_rect_checks(tr, dtype, k1, k2)
-    del halo
+    amazon_rect_checks(amazon, k1)
+    del halo, amazon
     for line in later:
         print(line())
 

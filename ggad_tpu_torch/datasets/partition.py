@@ -13,10 +13,12 @@ Renumbering the nodes so each part is one block shrinks the boundary:
 
 :func:`multilevel_partition` coarsens by heavy-edge matching first and
 refines at every level on the way back. The two scalar loops (refinement
-and matching) are Python copies of the JAX package's C++ helpers
-(``native/graphbuild.cpp``: ``gg_partition_refine``, ``gg_hem_match``),
-with their xorshift generator and their float32 sums, so equal seeds give
-equal partitions. They take O(E) Python steps a round.
+and matching) run in the port's host library (``csrc/graphbuild.cpp``:
+``gg_partition_refine``, ``gg_hem_match``, through ``native``) whenever a
+C++ compiler is present. On a host without one they take their Python
+copies (:func:`partition_refine_python`, :func:`hem_match_python`), with
+the same xorshift generator and float32 sums, so both routes give equal
+partitions; the copies take O(E) Python steps a round.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from collections import deque
 
 import numpy as np
 import scipy.sparse as sp
+
+from ggad_tpu_torch import native
 
 _MASK = (1 << 64) - 1
 
@@ -52,6 +56,24 @@ def _shuffle(order: list, nxt) -> None:
 def partition_refine(indptr, indices, part, n_parts: int, cap: int,
                      rounds: int = 10, seed: int = 1, weights=None,
                      node_w=None) -> np.ndarray:
+    """:func:`partition_refine_python`'s labels, from the host library
+    when ``native.available()``."""
+    fn = (native.partition_refine if native.available()
+          else partition_refine_python)
+    return fn(indptr, indices, part, n_parts, cap, rounds=rounds, seed=seed,
+              weights=weights, node_w=node_w)
+
+
+def hem_match(indptr, indices, weights=None, seed: int = 1) -> np.ndarray:
+    """:func:`hem_match_python`'s matching, from the host library when
+    ``native.available()``."""
+    fn = native.hem_match if native.available() else hem_match_python
+    return fn(indptr, indices, weights=weights, seed=seed)
+
+
+def partition_refine_python(indptr, indices, part, n_parts: int, cap: int,
+                            rounds: int = 10, seed: int = 1, weights=None,
+                            node_w=None) -> np.ndarray:
     """Capacity-bounded asynchronous label propagation
     (``gg_partition_refine``): each round visits the nodes in a fresh
     random order and moves a node to the part its edges weigh most toward
@@ -98,7 +120,8 @@ def partition_refine(indptr, indices, part, n_parts: int, cap: int,
     return np.asarray(p_list, np.int32)
 
 
-def hem_match(indptr, indices, weights=None, seed: int = 1) -> np.ndarray:
+def hem_match_python(indptr, indices, weights=None,
+                     seed: int = 1) -> np.ndarray:
     """Heavy-edge matching (``gg_hem_match``): in a random order, each
     unmatched node is matched with its heaviest-edge unmatched neighbour
     (the first among equals); ``partner[i]`` is i itself when none is

@@ -2,9 +2,10 @@
 ``ggad_tpu/datasets/synthetic.py``; the same seed gives bit-identical arrays).
 
 Community-structured normal nodes with Gaussian features, plus two planted
-anomaly types: structural cliques and attribute outliers. The port always
-symmetrizes with scipy; the JAX package switches to its native C++ helper
-from 200,000 nodes, which builds the same matrix.
+anomaly types: structural cliques and attribute outliers. From 200,000
+nodes the graph is symmetrized and compressed in the host library
+(``native.symmetrize`` + ``build_indptr``, as the JAX package does), which
+builds the same matrix as scipy's ``maximum(adj.T)`` below that.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from ggad_tpu_torch import native
 from ggad_tpu_torch.datasets.core import GADDataset
 from ggad_tpu_torch.datasets.splits import reference_split
 
@@ -93,10 +95,16 @@ def synthetic_gad(
 
     keep = src != dst
     src, dst = src[keep], dst[keep]
-    adj = sp.coo_matrix(
-        (np.ones(len(src), dtype=np.float32), (src, dst)),
-        shape=(n_nodes, n_nodes))
-    adj = adj.maximum(adj.T)       # symmetrize
+    if n_nodes >= 200_000 and native.available():
+        # scipy's maximum(adj.T) is the host build's cost at DGraph scale
+        rows, cols, vals = native.symmetrize(src, dst, None)
+        adj = sp.csr_matrix((vals, cols, native.build_indptr(rows, n_nodes)),
+                            shape=(n_nodes, n_nodes))
+    else:
+        adj = sp.coo_matrix(
+            (np.ones(len(src), dtype=np.float32), (src, dst)),
+            shape=(n_nodes, n_nodes))
+        adj = adj.maximum(adj.T)   # symmetrize
     adj.data[:] = 1.0              # binary, like the reference graphs
     adj = adj.tocsr()
     adj.setdiag(0)

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ggad_tpu_torch import native
 from ggad_tpu_torch.device import DeviceLike, resolve_device
 
 
@@ -73,6 +74,14 @@ class Graph:
         return (self.row[:e].cpu().numpy(), self.col[:e].cpu().numpy(),
                 self.val[:e].cpu().numpy())
 
+    def transpose_host(self) -> "Graph":
+        """Transpose (swap row/col) and re-sort, on the host, keeping
+        ``e_pad`` (``ggad_tpu/graph.py:75-80``); the result is on this
+        graph's device."""
+        row, col, val = self.host_coo()
+        return from_coo(col, row, val, self.n_nodes, e_pad=self.e_pad,
+                        device=self.device)
+
 
 def from_coo(
     row: np.ndarray,
@@ -87,7 +96,9 @@ def from_coo(
     """Build a Graph from host-side COO arrays. Sorts by (row, col), pads.
 
     Duplicate edges are preserved (summed implicitly by SpMM), matching
-    scipy's COO semantics under matmul.
+    scipy's COO semantics under matmul. Above 1M edges the sort runs in
+    the host library (``native.sort_coo``, as ``ggad_tpu/graph.py:105-109``),
+    stable as ``np.lexsort`` is, so both routes give the same order.
     """
     device = resolve_device(device)
     row = np.asarray(row, dtype=np.int64)
@@ -97,8 +108,12 @@ def from_coo(
         val = np.ones(n_edges, dtype=np.float32)
     val = np.asarray(val, dtype=np.float32)
 
-    order = np.lexsort((col, row))
-    row, col, val = row[order], col[order], val[order]
+    if n_edges > 1_000_000 and native.available():
+        row32, col32, val = native.sort_coo(row, col, val)
+        row, col = row32.astype(np.int64), col32.astype(np.int64)
+    else:
+        order = np.lexsort((col, row))
+        row, col, val = row[order], col[order], val[order]
 
     if e_pad is None:
         e_pad = max(_round_up(max(n_edges, 1), pad_multiple), pad_multiple)

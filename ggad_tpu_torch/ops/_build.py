@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each ``csrc/<name>.cu`` has a plain C interface (and may include the shared
 headers ``csrc/*.cuh``). At first use it is compiled with ``nvcc`` for
@@ -6,6 +6,11 @@ headers ``csrc/*.cuh``). At first use it is compiled with ``nvcc`` for
 carries a hash of the sources and flags, and
 loaded with ``ctypes``. Nothing is built when a module is imported. :func:`launch`
 calls an entry point on PyTorch's current stream.
+
+:func:`build_host` compiles a host library, ``csrc/<name>.cpp`` (the graph
+builder of ``ggad_tpu_torch.native``), with the C++ compiler into the same
+directory, the same way: hashed name, a per-process temporary file and an
+atomic rename, so processes building at once leave one whole library.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -25,6 +31,10 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# no -march=native: the library must load on any x86-64 host it reaches
+# (a build directory copied to another machine); the compiler's identity
+# is part of the name's hash instead, so another toolchain rebuilds it
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-Wall")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -42,13 +52,38 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def cxx_path() -> str | None:
+    """The host C++ compiler (``g++``, else ``c++``), or None."""
+    return shutil.which("g++") or shutil.which("c++")
+
+
+def _hashed_path(name: str, sources, salt: str) -> Path:
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
+                            + salt.encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
 def library_path(name: str) -> Path:
     """The library's path, named by a hash of the source, the shared
     headers (``csrc/*.cuh``) and the flags."""
     sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    return _hashed_path(name, sources, " ".join(NVCC_FLAGS))
+
+
+def _compile(out: Path, compiler: list, source: Path) -> str:
+    """``compiler -o <tmp> source`` into a per-process temporary file,
+    renamed to ``out``; returns the compiler's messages, raises with them
+    when it fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([*compiler, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{compiler[0]} failed for {source.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stderr
 
 
 def build(name: str) -> tuple[Path, str]:
@@ -57,15 +92,30 @@ def build(name: str) -> tuple[Path, str]:
     out = library_path(name)
     if out.exists():
         return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
+    return out, _compile(out, [nvcc_path(), *NVCC_FLAGS],
+                         CSRC_DIR / f"{name}.cu")
+
+
+def host_library_path(name: str, cxx: str) -> Path:
+    """The host library's path, named by a hash of ``csrc/<name>.cpp``,
+    the flags, the machine's architecture and the compiler's version."""
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[:1]
+    return _hashed_path(name, [CSRC_DIR / f"{name}.cpp"], " ".join(
+        (*HOST_FLAGS, platform.machine(), cxx, *version)))
+
+
+def build_host(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cpp`` with the host C++ compiler unless its
+    library exists; returns the library's path and the compiler's
+    warnings. Raises when no compiler is found or the compile fails."""
+    cxx = cxx_path()
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ or c++) on this host")
+    out = host_library_path(name, cxx)
+    if out.exists():
+        return out, ""
+    return out, _compile(out, [cxx, *HOST_FLAGS], CSRC_DIR / f"{name}.cpp")
 
 
 def load(name: str) -> ctypes.CDLL:

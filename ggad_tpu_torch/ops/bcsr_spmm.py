@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ggad_tpu_torch import native
 from ggad_tpu_torch.device import DeviceLike, resolve_device
 from ggad_tpu_torch.ops import _build
 
@@ -121,10 +122,11 @@ class BCSR:
 def bcsr_from_coo(row: np.ndarray, col: np.ndarray, val: np.ndarray,
                   n_nodes: int, *, tile_rows: int = TILE,
                   device: DeviceLike = None) -> BCSR:
-    """Host-side float32 BCSR build, the numpy route of
-    ``ggad_tpu.ops.pallas_spmm.bcsr_from_coo``: duplicate edges are summed
-    with ``np.add.at``. ``tile_rows`` is the tile height (a multiple of
-    128)."""
+    """Host-side float32 BCSR build (``pallas_spmm.py:57-95``): duplicate
+    edges are summed in input order, by the host library at tile height
+    128 (``native.bcsr_build``, as ``pallas_spmm.py:72-75``) and with
+    ``np.add.at`` otherwise, which gives the same store. ``tile_rows`` is
+    the tile height (a multiple of 128)."""
     if tile_rows <= 0 or tile_rows % TILE:
         raise ValueError(f"tile_rows={tile_rows} is not a multiple of {TILE}")
     device = resolve_device(device)
@@ -133,13 +135,17 @@ def bcsr_from_coo(row: np.ndarray, col: np.ndarray, val: np.ndarray,
     n_row_pad = _round_up(max(n_nodes, tile_rows), tile_rows)
     n_col_pad = _round_up(max(n_nodes, TILE), TILE)
     nct = n_col_pad // TILE
-    tkey = (row // tile_rows) * nct + col // TILE
-    uniq, inv = np.unique(tkey, return_inverse=True)
-    values = np.zeros((len(uniq), tile_rows, TILE), np.float32)
-    np.add.at(values, (inv, row % tile_rows, col % TILE), val)
-    # np.unique returns sorted keys → already (tile_row, tile_col) sorted.
-    t_rows = (uniq // nct).astype(np.int32)
-    t_cols = (uniq % nct).astype(np.int32)
+    if tile_rows == TILE and native.available():
+        t_rows, t_cols, values = native.bcsr_build(row, col, val, nct)
+    else:
+        tkey = (row // tile_rows) * nct + col // TILE
+        uniq, inv = np.unique(tkey, return_inverse=True)
+        values = np.zeros((len(uniq), tile_rows, TILE), np.float32)
+        np.add.at(values, (inv, row % tile_rows, col % TILE), val)
+        # np.unique returns sorted keys → already (tile_row, tile_col)
+        # sorted
+        t_rows = (uniq // nct).astype(np.int32)
+        t_cols = (uniq % nct).astype(np.int32)
     t_ptr = np.searchsorted(
         t_rows, np.arange(n_row_pad // tile_rows + 1)).astype(np.int32)
     return BCSR(

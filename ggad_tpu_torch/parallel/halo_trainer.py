@@ -334,3 +334,36 @@ def prepare_halo(dataset, mesh, spmm_impl: str = "auto",
         normal_idx=node_index(dataset.normal_label_idx, R, mesh),
         seed_rows=seed_rows, aff_sub=aff_sub, route=route, tiles=tiles,
         ells=ells)
+
+
+def halo_training_run(mesh, dataset, *, n_h: int = 64, lr: float = 1e-3,
+                      noise_mean: float = 0.02, noise_std: float = 0.01,
+                      seed: int = 0, n_steps: int = 1,
+                      spmm_impl: str = "auto", spmm_dtype: str = "float32",
+                      schedule: str = "dense",
+                      generator: Optional[torch.Generator] = None,
+                      device=None):
+    """Build and run the halo training loop (``halo_trainer.py:386-425``):
+    ``FullBatchTrainer(mesh=mesh)`` (:func:`prepare_halo` and its train
+    step) from the port's init seeded with ``seed``, ``n_steps`` Adam steps with the noise drawn from
+    ``generator`` (default: one on the mesh's device seeded with ``seed``,
+    as ``train()`` seeds it). Returns ``(params, losses)``: the final
+    ``state_dict`` and the last step's losses. ``mesh`` is a shard count
+    (the local communicator on ``device``) or a 1-D communicator;
+    ``spmm_impl`` is the trainer's (``"auto"`` routes by the graph). JAX's
+    ``steps_per_dispatch`` has no counterpart: the steps run one after
+    another and nothing is read between them."""
+    from ggad_tpu_torch.train.full_batch import FullBatchTrainer
+
+    tr = FullBatchTrainer(dataset, lr=lr, embedding_dim=n_h,
+                          noise_mean=noise_mean, noise_std=noise_std,
+                          seed=seed, spmm_impl=spmm_impl,
+                          spmm_dtype=spmm_dtype, device=device, mesh=mesh,
+                          dist_schedule=schedule)
+    tr.model.load_state_dict(tr.initial_state())
+    if generator is None:
+        generator = torch.Generator(tr.device).manual_seed(seed)
+    losses = None
+    for _ in range(n_steps):
+        losses = tr.train_step(generator)
+    return tr.params(), losses

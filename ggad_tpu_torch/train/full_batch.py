@@ -33,7 +33,9 @@ launches neither kernel.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Mapping, Optional
 
@@ -115,6 +117,57 @@ def maybe_bcsr(adj: Graph, impl: str, *, dtype="float32",
     return adj
 
 
+def profile_activities(device: torch.device) -> Optional[list]:
+    """The profiler's activities for ``profile_dir`` on ``device``: the
+    host and the card on CUDA, None (no trace) elsewhere, as JAX traces
+    only on the TPU (``full_batch.py:478-481``)."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+
+class ProfileWindow:
+    """A ``torch.profiler`` trace of epochs 2..4 of a training loop, written
+    as a Chrome trace to ``<out_dir>/trace_steps_2_4.json``
+    (``ggad_tpu/train/full_batch.py:478-510``): it starts at the top of the
+    first epoch ≥ ``first`` and stops after the step that reaches an epoch
+    ≥ ``last``, once the card has finished it. Each step runs under a
+    ``train_step <epoch>`` range. With no activities it traces nothing."""
+
+    first, last = 2, 4
+
+    def __init__(self, out_dir: Optional[str], activities):
+        self.out_dir, self.activities = out_dir, activities
+        self.prof = None
+        self.path: Optional[str] = None
+
+    def before(self, epoch: int) -> None:
+        if (self.activities and self.prof is None and self.path is None
+                and epoch >= self.first):
+            from torch.profiler import profile
+
+            self.prof = profile(activities=self.activities)
+            self.prof.start()
+
+    def step(self, epoch: int):
+        if self.prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"train_step {epoch}")
+
+    def after(self, epoch: int, last_value: torch.Tensor) -> None:
+        if self.prof is None or epoch < self.last:
+            return
+        last_value.cpu()              # the traced steps end on the card
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.out_dir, f"trace_steps_{self.first}_{self.last}.json")
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+
+
 @dataclasses.dataclass
 class TrainResult:
     params: dict           # final state_dict
@@ -164,6 +217,7 @@ class FullBatchTrainer:
     logger: Optional[Callable[[dict], None]] = None
     scan_steps: int = 1            # steps between host reads of the loss
     checkpoint_dir: Optional[str] = None
+    profile_dir: Optional[str] = None  # torch.profiler trace of steps 2..4
     train_auc_every: Optional[int] = None
     initial_params: Optional[Any] = None   # flax tree or state_dict
     hoist_ax: bool = True          # precompute Â@x once (Â(xW₁)=(Âx)W₁)
@@ -426,8 +480,11 @@ class FullBatchTrainer:
                 epoch = int(restored["epoch"]) + 1
 
         history = []
+        window = ProfileWindow(self.profile_dir, self.profile_dir
+                               and profile_activities(self.device))
         t0 = time.time()
         while epoch < self.num_epoch:
+            window.before(epoch)
             # run up to scan_steps steps, stopping at the next log/eval
             # boundary, before reading the loss. JAX fuses them with
             # lax.scan; here they run one after another, but the chunks
@@ -438,9 +495,11 @@ class FullBatchTrainer:
                             or e % self.eval_every == 0
                             or e == self.num_epoch)
             chunk = min(max(boundary - epoch, 1), self.scan_steps)
-            for _ in range(chunk):
-                losses = self.train_step(generator)
+            for i in range(chunk):
+                with window.step(epoch + i):
+                    losses = self.train_step(generator)
             epoch += chunk - 1
+            window.after(epoch, losses.total)
 
             rec = None
             last = epoch == self.num_epoch - 1

@@ -1,5 +1,5 @@
-"""Structured jsonl metric logging (counterpart of
-``ggad_tpu/utils/logging.py:16-30``): each record is one json line with a
+"""Structured jsonl metric logging and a step timer (counterpart of
+``ggad_tpu/utils/logging.py``): each record is one json line with a
 wall-clock timestamp, for ``cli.py --log_jsonl``."""
 
 from __future__ import annotations
@@ -7,6 +7,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from typing import Optional
 
 
 class JsonlLogger:
@@ -24,3 +25,28 @@ class JsonlLogger:
 
     def close(self) -> None:
         self._fh.close()
+
+
+class StepTimer:
+    """Accumulating wall-clock timer (``ggad_tpu/utils/logging.py:33-52``,
+    the reference's ``total_time`` pattern): each ``with`` block adds its
+    seconds to ``total`` and one to ``count``. It reads the host clock: a
+    block that only enqueues work on the card must synchronize inside to
+    time it."""
+
+    def __init__(self):
+        self.total = 0.0
+        self.count = 0
+        self._t0: Optional[float] = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.total += time.perf_counter() - self._t0
+        self.count += 1
+
+    @property
+    def mean(self) -> float:
+        return self.total / max(self.count, 1)

@@ -243,6 +243,16 @@ for name in names:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m == "ggad_tpu" or m.startswith("ggad_tpu.")]
 assert not bad, bad
+# matplotlib is imported by viz's functions alone, and nothing is built
+plots = [m for m in sys.modules if m.split(".")[0] == "matplotlib"]
+assert not plots, plots
+from ggad_tpu_torch import native
+assert native._lib is None
+import tempfile, os
+from ggad_tpu_torch import viz
+with tempfile.TemporaryDirectory() as d:
+    viz.draw_roc([0, 1, 1], [0.1, 0.7, 0.4], os.path.join(d, "roc.png"))
+assert "matplotlib" in sys.modules
 print("\n".join(names))
 """
 
@@ -260,4 +270,6 @@ def test_port_imports_neither_jax_nor_ggad_tpu():
             "ggad_tpu_torch.parallel.full_batch",
             "ggad_tpu_torch.parallel.multihost",
             "ggad_tpu_torch.entry",
-            "ggad_tpu_torch.datasets.partition"} <= set(names)
+            "ggad_tpu_torch.datasets.partition",
+            "ggad_tpu_torch.native",
+            "ggad_tpu_torch.viz"} <= set(names)
