@@ -219,6 +219,7 @@ N_H = 300
 REQUESTS = 5
 EPOCHS = 10                                   # train() epochs per precision
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9         # 128 B a clock, 132 SMs, boost
 PEAK_FLOPS = {"float32": 67e12,               # fp32 on the CUDA cores
               "bfloat16": 989e12}             # bf16 tensor cores, dense
 TOL = {"float32": 1e-5, "bfloat16": 2e-5}     # tests/test_torch_bcsr_spmm.py
@@ -378,6 +379,25 @@ def device_ms(fn, iters: int = 20) -> tuple[float, dict, float]:
             sum(e.count for e in events) / iters)
 
 
+def event_ms(fn, iters: int = 20) -> float:
+    """Median device milliseconds of one call: CUDA events around each of
+    ``iters`` calls, all enqueued behind a sleep on the card so that the
+    host's launch time stays out of the intervals (no profiler)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(100_000_000)          # ≈50 ms of the card's clock
+    for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
 def build_kernels() -> None:
     """The kernels' ``nvcc`` builds and the host library's ``g++`` build,
     all started together."""
@@ -480,19 +500,29 @@ def k2_bound_ms(tiles, e_row, e_col, dtype: str) -> dict:
 
 
 def check_k1(tiles, h, dtype: str, *, n_out=None, timed: bool) -> dict:
-    """Kernel vs plain version on the same card inputs."""
+    """Kernel vs plain version on the same card inputs: the store's own
+    route (``bcsr_matmul``) and the other route (the walk or the staged
+    route, forced); timed, also both routes' device times and the staged
+    launch's shape (blocks, shared memory a block, stages, slab MB)."""
     import torch
 
     from ggad_tpu_torch.ops import bcsr_spmm as pb
 
+    m = h.shape[0] if n_out is None else n_out
     out = pb.bcsr_matmul(tiles, h, n_out)
+    view = pb.tile_view(tiles) if tiles.view is None else tiles.view
+    other = pb.bcsr_spmm_cuda(tiles, h, m,
+                              view=None if tiles.view is not None else view)
     torch.cuda.synchronize()
     plain = pb.bcsr_spmm_plain(tiles, h, n_out)
-    err = (out - plain).abs().max().item()
-    torch.testing.assert_close(out, plain, rtol=TOL[dtype], atol=TOL[dtype])
-    if not torch.isfinite(out).all():
-        raise RuntimeError("K1 produced non-finite values")
-    rec = {"max_abs_err": err}
+    err = max((out - plain).abs().max().item(),
+              (other - plain).abs().max().item())
+    for got in (out, other):
+        torch.testing.assert_close(got, plain, rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        if not torch.isfinite(got).all():
+            raise RuntimeError("K1 produced non-finite values")
+    rec = {"max_abs_err": err, "k1_route": tiles.route}
     if not timed:
         return rec
     n, d = h.shape
@@ -501,13 +531,109 @@ def check_k1(tiles, h, dtype: str, *, n_out=None, timed: bool) -> dict:
                              iters=20)
     rec["plain_ms"] = cuda_ms(lambda: pb.bcsr_spmm_plain(tiles, h, n_out),
                               iters=3, warmup=1)
+    for route, v in (("walk", None), ("staged", view)):
+        rec[f"{route}_ms"] = event_ms(
+            lambda: pb.bcsr_spmm_cuda(tiles, h, m, view=v))
+    shape = pb.k1_launch_shape(tiles, d, m, view)
+    rec.update({k: shape[k] for k in ("blocks", "smem_bytes", "stages",
+                                      "slab_mb", "reuse")})
     rec.update(k1_bound_ms(tiles, n, d, dtype, n_out))
+    # the staged route's own bound: its shared-memory reads, a slab row
+    # of 64 columns and an 8-byte entry per non-zero and chunk
+    nnz, item = tiles.col.numel(), tiles.values.element_size()
+    chunks = -(-d // pb.STAGED_CHUNK)
+    smem = nnz * chunks * (pb.STAGED_CHUNK * item + 8)
+    rec["staged_smem_mb"] = smem / 1e6
+    rec["staged_bound_ms"] = max(
+        2.0 * d * nnz / (PEAK_FLOPS[dtype] / 1e3),
+        smem / SMEM_BYTES_PER_S * 1e3)
     rec["gather_tb_s"] = rec["gather_mb"] / rec["ms"] / 1e3
     rec["library_ms"], lib_err = library_spmm_ms(tiles, h, dtype, out,
                                                  n_out)
     print(f"  device us per call by kernel: {json.dumps(per)}")
+    print(f"  K1 route {tiles.route} (slab reuse {shape['reuse']:.2f}): "
+          f"walk {rec['walk_ms']:.4f} ms, staged {rec['staged_ms']:.4f} ms "
+          f"({shape['blocks']} blocks of {shape['threads']} threads, "
+          f"{shape['smem_bytes']} B shared a block, {shape['stages']} "
+          f"stages, slab {shape['slab_mb']:.1f} MB against the walk's "
+          f"gather {rec['gather_mb']:.1f} MB)")
     print(f"  library (torch.sparse.mm, CSR) vs kernel max|d| {lib_err:.3g}")
     return rec
+
+
+def walk_pace(tiles, x, n_out: int) -> dict:
+    """What sets the walk's pace on a store: its rows' non-zero counts
+    (mean, 99th percentile, most) and the walk's device time (CUDA events)
+    with every row cut to its first k non-zeros, for k from 16 up to the
+    longest row (the store itself), each beside the non-zeros kept; on the
+    whole store, at one column chunk (d 128) against the full width; and
+    the same non-zeros with every row cut into pieces of at most 64, each
+    piece a row of its own. A warp walks one (row, chunk) alone, so a time
+    that follows the longest row while the non-zeros barely move, and
+    falls when the same non-zeros are cut into short rows, is set by the
+    longest rows' chains."""
+    import dataclasses
+
+    import torch
+
+    from ggad_tpu_torch.ops import bcsr_spmm as pb
+
+    v, tr = tiles.values, tiles.tile_height
+    t, r, c = torch.nonzero(v, as_tuple=True)
+    grow, order = torch.sort(tiles.tile_rows.long()[t] * tr + r, stable=True)
+    t, r, c = t[order], r[order], c[order]        # tile_csr's order
+    rank = torch.arange(grow.numel(), device=v.device) \
+        - tiles.row_ptr.long()[grow]
+    per_row = (tiles.row_ptr[1:] - tiles.row_ptr[:-1])[:n_out].float()
+    most = int(per_row.max())
+    stats = {"mean": round(float(per_row.mean()), 2),
+             "p99": float(torch.quantile(per_row, 0.99)), "max": most}
+    walk = lambda s, h: pb.bcsr_spmm_cuda(s, h, n_out, view=None)  # noqa
+    by_cap = {}
+    for k in [k for k in (16, 32, 64, 128, 256, 512) if k < most] + [most]:
+        cut = v.clone()
+        drop = rank >= k
+        cut[t[drop], r[drop], c[drop]] = 0
+        capped = dataclasses.replace(tiles, values=cut)
+        by_cap[k] = {"nnz": capped.col.numel(),
+                     "walk_ms": event_ms(lambda: walk(capped, x))}
+        del capped, cut
+    narrow = x[:, :128].contiguous()
+    # pieces 1, 2, ... of each row on rows of their own, after n_out
+    piece = rank // 64
+    cut = piece > 0
+    key, inv = torch.unique(grow[cut] * (most // 64 + 1) + piece[cut],
+                            return_inverse=True)
+    row = grow.clone()
+    row[cut] = n_out + inv
+    n_split = n_out + key.numel()
+    split = pb.bcsr_rect_from_coo(
+        row.cpu().numpy(), tiles.col.cpu().numpy(),
+        tiles.val.float().cpu().numpy(), n_split, tiles.n_cols,
+        dtype=v.dtype, tile_rows=tr, device=v.device)
+    out = {"row_nnz": stats, "walk_ms_by_row_cap": by_cap,
+           "walk_ms_d128": event_ms(lambda: walk(tiles, narrow)),
+           "rows_cut_at_64": {
+               "rows": n_split, "nnz": split.col.numel(),
+               "walk_ms": event_ms(lambda: pb.bcsr_spmm_cuda(
+                   split, x, n_split, view=None))}}
+    print(f"  walk pace: rows' non-zeros {json.dumps(stats)}; walk ms by "
+          f"row cap {json.dumps(by_cap)}; at d 128 "
+          f"{out['walk_ms_d128']:.4f} ms (d {x.shape[1]}: "
+          f"{by_cap[most]['walk_ms']:.4f}); rows cut into pieces of 64 "
+          f"{json.dumps(out['rows_cut_at_64'])}")
+    return out
+
+
+# what a timed K2 shape keeps in the kernels line
+K2_KEEP = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+           "design_bound_ms", "library_ms", "max_abs_err")
+# what a timed K1 shape keeps in the kernels line
+K1_KEEP = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+           "design_bound_ms", "library_ms", "max_abs_err", "k1_route",
+           "walk_ms", "staged_ms", "gather_mb", "gather_tb_s", "slab_mb",
+           "smem_bytes", "blocks", "stages", "reuse", "staged_smem_mb",
+           "staged_bound_ms")
 
 
 def tile_coo(tiles):
@@ -628,8 +754,10 @@ def labeled(ds):
 
 def tile_rows_sweep(adj, h, dtype: str) -> list:
     """K1 on the photo forward tiles at each height of the study's sweep,
-    held against its plain version; prints what the study printed
-    (``tile_rows_study.py:188-195``), the kernel's time from the card."""
+    both routes held against the plain version; prints what the study
+    printed (``tile_rows_study.py:188-195``), the kernel's time from the
+    card, and both routes' times with the staged slab's reuse and bytes
+    (the height sets how many non-zeros a staged slab row serves)."""
     from ggad_tpu_torch.ops import bcsr_spmm as pb
 
     rows = []
@@ -638,15 +766,24 @@ def tile_rows_sweep(adj, h, dtype: str) -> list:
                                  transpose=False).tiles.fwd
         err = check_k1(tiles, h, dtype, timed=False)["max_abs_err"]
         ms = device_ms(lambda: pb.bcsr_matmul(tiles, h))[0]
+        view = pb.tile_view(tiles) if tiles.view is None else tiles.view
+        n = h.shape[0]
+        shape = pb.k1_launch_shape(tiles, h.shape[1], n, view)
         v = tiles.values
         rows.append({"tile_rows": tr, "n_tiles": tiles.n_tiles,
                      "tile_store_MB": round(v.numel() * v.element_size()
                                             / 2 ** 20, 1),
-                     "spmm_ms": ms,
+                     "spmm_ms": ms, "k1_route": tiles.route,
+                     "walk_ms": event_ms(lambda: pb.bcsr_spmm_cuda(
+                         tiles, h, n, view=None)),
+                     "staged_ms": event_ms(lambda: pb.bcsr_spmm_cuda(
+                         tiles, h, n, view=view)),
+                     "slab_reuse": round(shape["reuse"], 3),
+                     "slab_mb": round(shape["slab_mb"], 1),
                      "edges_per_tile": round(adj.n_edges / tiles.n_tiles, 1),
                      "max_abs_err": err})
         print(f"  K1 tile-height sweep {dtype}: {json.dumps(rows[-1])}")
-        del tiles, v
+        del tiles, v, view
     return rows
 
 
@@ -682,9 +819,7 @@ def kernel_phase(cuda, k1: dict, k2: dict) -> None:
         print(f"K1 photo {dtype} at d={D_DEC2} (AEGIS gcn_dec2's width; "
               f"its operand copied to a whole-vector stride)")
         dec = check_k1(fwd, h_dec, dtype, timed=True)
-        k1[dtype]["at_d745"] = {key: dec[key] for key in (
-            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err")}
+        k1[dtype]["at_d745"] = {key: dec[key] for key in K1_KEEP}
         print("  " + json.dumps(k1[dtype]["at_d745"]))
         k1[dtype]["max_abs_err"] = max(k1[dtype]["max_abs_err"],
                                        dec["max_abs_err"])
@@ -2259,10 +2394,7 @@ def tam_kernel_checks(pair, k1: dict) -> None:
                   f"tr={tiles.tile_height} {tiles.n_rows}x{tiles.n_cols} "
                   f"d={d}")
             rec = check_k1(tiles, h, "float32", timed=True)
-            recs[f"{side} d{d}"] = {key: rec[key] for key in (
-                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                "design_bound_ms", "gather_tb_s", "library_ms",
-                "max_abs_err")}
+            recs[f"{side} d{d}"] = {key: rec[key] for key in K1_KEEP}
             print("  " + json.dumps(recs[f"{side} d{d}"]))
         del h
     k1["float32"]["tam_blockdiag"] = recs
@@ -2367,8 +2499,7 @@ def halo_rect_checks(tr, dtype: str, k1: dict, k2: dict) -> None:
     def rand(n, d):
         return torch.randn(n, d, device=cuda, generator=gen)
 
-    keep = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-            "design_bound_ms", "library_ms", "max_abs_err")
+    keep = K1_KEEP
     recs, errs = {}, []
     for d in (F, N_H):
         h, buf, g = rand(R, d), rand(W, d), rand(R, d)
@@ -2382,6 +2513,9 @@ def halo_rect_checks(tr, dtype: str, k1: dict, k2: dict) -> None:
                 errs.append(rec["max_abs_err"])
                 if i == 0:
                     recs[f"{name} d{d}"] = {k: rec[k] for k in keep}
+                    if name == "remote" and dtype == "float32":
+                        recs[f"{name} d{d}"]["pace"] = walk_pace(tiles, x,
+                                                                 n_out)
                     print(f"K1 halo {name} {dtype} shard 0: T={tiles.n_tiles}"
                           f" {tiles.n_rows}x{tiles.n_cols} d={d}: "
                           f"{json.dumps(recs[f'{name} d{d}'])}")
@@ -2400,7 +2534,7 @@ def halo_rect_checks(tr, dtype: str, k1: dict, k2: dict) -> None:
         if timed:
             recs["subset [U x R] (K2 backward)"] = {k: rb[k] for k in keep}
             recs["subset [R x U] (K2 backward)"] = {k: rf[k] for k in keep}
-            k2[dtype]["halo_rect"] = {k: r2[k] for k in keep}
+            k2[dtype]["halo_rect"] = {k: r2[k] for k in K2_KEEP}
             print(f"K2 halo subset {dtype} shard 0: T={sub.t_bwd[0].n_tiles}"
                   f" {sub.t_bwd[0].n_rows}x{sub.t_bwd[0].n_cols} U={U} "
                   f"d={N_H}: {json.dumps(k2[dtype]['halo_rect'])}")
@@ -3074,7 +3208,9 @@ def amazon_halo_phase(cuda, k1: dict, k2: dict, later: list):
     """Phase 8d: the partitioner's two routes on the elliptic shape, then
     the halo path on the full Amazon shape after a native ``reorder_lp``
     against the single-device trainer. Returns the halo trainer, whose
-    rect sets ``amazon_rect_checks`` times after the timed phases."""
+    rect sets ``amazon_rect_checks`` times after the timed phases, and the
+    single-device trainer's tile pair with the feature width, which
+    ``amazon_single_checks`` times then."""
     import numpy as np
     import torch
 
@@ -3154,6 +3290,7 @@ def amazon_halo_phase(cuda, k1: dict, k2: dict, later: list):
     print(f"Amazon single-device reference ({ref.route}, tile height "
           f"{ref.adj.tiles.fwd.tile_height}): prepare {t_ref:.3f} s (host "
           f"library calls {calls}); step ms {[round(x, 3) for x in r[2]]}")
+    single = (ref.adj.tiles, lp.feat_dim)
     del ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -3198,7 +3335,7 @@ def amazon_halo_phase(cuda, k1: dict, k2: dict, later: list):
                          halo_step_fn(tr, noises[0]),
                          statistics.median(h[2]), AMAZON_STEPS))
     print(f"Amazon halo phase {time.perf_counter() - t_phase:.1f} s")
-    return tr
+    return tr, single
 
 
 def amazon_rect_checks(tr, k1: dict) -> None:
@@ -3214,8 +3351,7 @@ def amazon_rect_checks(tr, k1: dict) -> None:
     gen = torch.Generator(tr.device).manual_seed(6)
     h, buf, g = (torch.randn(n, N_H, device=tr.device, generator=gen)
                  for n in (R, W, R))
-    keep = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-            "design_bound_ms", "library_ms", "max_abs_err")
+    keep = K1_KEEP
     recs, errs = {}, []
     for name, per_shard, x, n_out in (
             ("local", t.loc, h, R), ("remote", t.fwd, buf, R),
@@ -3227,6 +3363,9 @@ def amazon_rect_checks(tr, k1: dict) -> None:
             errs.append(rec["max_abs_err"])
             if timed:
                 recs[f"{name} d{N_H}"] = {k: rec[k] for k in keep}
+                if name == "remote":
+                    recs[f"{name} d{N_H}"]["pace"] = walk_pace(tiles, x,
+                                                               n_out)
                 print(f"K1 Amazon halo {name} float32 shard 0: "
                       f"T={tiles.n_tiles} tile height {tiles.tile_height} "
                       f"{tiles.n_rows}x{tiles.n_cols} d={N_H}: "
@@ -3314,7 +3453,36 @@ def profile_dir_phase(cuda, k1: dict, k2: dict) -> None:
           f"kernels, {device_us / 1e3:.3f} ms of kernel time in the window")
 
 
+def amazon_single_checks(pair, feat_dim: int, k1: dict) -> None:
+    """The single-device Amazon trainer's K1 shapes held against their
+    plain versions and timed: its forward tiles at the feature width (the
+    hoisted Â·x) and at d 300, its transposed tiles at d 300 (the
+    backward)."""
+    import torch
+
+    cuda = pair.fwd.values.device
+    gen = torch.Generator(cuda).manual_seed(7)
+    recs, errs = {}, []
+    for name, tiles, d in (("forward", pair.fwd, feat_dim),
+                           ("forward", pair.fwd, N_H),
+                           ("transposed", pair.bwd, N_H)):
+        h = torch.randn(pair.n_nodes, d, device=cuda, generator=gen)
+        rec = check_k1(tiles, h, "float32", timed=True)
+        errs.append(rec["max_abs_err"])
+        key = f"{name} d{d}"
+        recs[key] = {k: rec[k] for k in K1_KEEP}
+        print(f"K1 Amazon single-device {name} float32: T={tiles.n_tiles} "
+              f"tile height {tiles.tile_height} {tiles.n_rows}x"
+              f"{tiles.n_cols} d={d}: {json.dumps(recs[key])}")
+    k1["float32"]["amazon_single"] = recs
+    k1["float32"]["max_abs_err"] = max(k1["float32"]["max_abs_err"], *errs)
+
+
 def kernel_record(name, source, replaces, rec) -> dict:
+    """One kernel's entry in the kernels line, from its photo record; K1's
+    also carries its launches by route over the main paths (the walk or
+    the staged route, fixed by each store's shape) and both routes' times
+    on the photo shape."""
     paths = rec.get("paths", {})
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": sum(paths.values()),
@@ -3325,13 +3493,19 @@ def kernel_record(name, source, replaces, rec) -> dict:
            "design_bound_ms": rec["design_bound_ms"],
            "gather_mb": rec["gather_mb"], "gather_tb_s": rec["gather_tb_s"],
            "library_ms": rec["library_ms"]}
-    for key in ("at_d745", "tam_blockdiag", "halo_rect", "amazon_halo_rect"):
+    for key in ("launches_by_route", "k1_route", "walk_ms", "staged_ms",
+                "slab_mb", "smem_bytes", "blocks", "stages", "reuse",
+                "staged_smem_mb", "staged_bound_ms",
+                "at_d745", "tam_blockdiag", "halo_rect", "amazon_halo_rect",
+                "amazon_single"):
         if key in rec:
             out[key] = rec[key]
     if "tile_rows_sweep" in rec:
         out["also_replaces"] = [STUDY_REPLACES]
-        out["tile_rows_sweep"] = {r["tile_rows"]: r["spmm_ms"]
-                                  for r in rec["tile_rows_sweep"]}
+        out["tile_rows_sweep"] = {
+        r["tile_rows"]: {k: r[k] for k in ("spmm_ms", "k1_route", "walk_ms",
+                                           "staged_ms", "slab_reuse")}
+        for r in rec["tile_rows_sweep"]}
     return out
 
 
@@ -3355,6 +3529,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     build_kernels()
+    from ggad_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+    routes_at_start = dict(bcsr_spmm.routes)
     # the end-to-end phases first: they are timed with CUDA events and the
     # host clock, before any profiler session adds its launch overhead
     k1 = {"float32": {}, "bfloat16": {}}
@@ -3371,14 +3547,20 @@ def main() -> int:
     tam_pair = tam_phase(cuda, k1, k2, later)
     halo = halo_phase(cuda, k1, k2, later)
     gspmd_phase(cuda, k1, k2, later)
-    amazon = amazon_halo_phase(cuda, k1, k2, later)
+    amazon, amazon_single = amazon_halo_phase(cuda, k1, k2, later)
     profile_dir_phase(cuda, k1, k2)
+    routes = {k: n - routes_at_start[k] for k, n in bcsr_spmm.routes.items()}
+    print(f"K1 launches by route over the main paths: {json.dumps(routes)}")
+    for dtype in k1:
+        k1[dtype]["launches_by_route"] = {
+            r: routes[f"{r}_{SHORT[dtype]}"] for r in ("staged", "walk")}
     kernel_phase(cuda, k1, k2)
     tam_kernel_checks(tam_pair, k1)
     for dtype, tr in halo.items():
         halo_rect_checks(tr, dtype, k1, k2)
     amazon_rect_checks(amazon, k1)
-    del halo, amazon
+    amazon_single_checks(*amazon_single, k1)
+    del halo, amazon, amazon_single
     for line in later:
         print(line())
 

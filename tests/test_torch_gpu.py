@@ -455,6 +455,96 @@ def test_k1_at_widths_off_the_vector(cuda, dtype, tol, d):
                                    rtol=tol, atol=tol)
 
 
+def k1_route_cases(case, dtype, device):
+    """(tile store, H, output rows) for ``test_k1_routes_match_plain``."""
+    rng = np.random.default_rng(11)
+    n = 1100
+    rows = rng.integers(0, n, (150 if case == "dense tiles" else 12) * n)
+    cols = rng.integers(0, n, rows.shape[0])
+    vals = rng.uniform(0.25, 1.5, rows.shape[0]).astype(np.float32)
+    if case == "heavy row":     # row 700 holds every column, values / n
+        rows = np.r_[rows, np.full(n, 700)]
+        cols = np.r_[cols, np.arange(n)]
+        vals = np.r_[vals, rng.uniform(0.25, 1.5, n).astype(np.float32) / n]
+        tiles = pb.as_bcsr_graph(pg.from_coo(rows, cols, vals, n,
+                                             device=device), dtype=dtype,
+                                 tile_rows=1024).tiles.fwd
+        return tiles, randn(n, 300, device=device, seed=1), n
+    if case == "remote past h_rows":
+        # [R × W] with H of W - 70 rows: the last 70 columns read zeros
+        keep = rows < 500
+        tiles = pb.bcsr_rect_from_coo(rows[keep], cols[keep], vals[keep],
+                                      500, n, dtype=dtype, tile_rows=512,
+                                      device=device)
+        return tiles, randn(n - 70, 300, device=device, seed=2), 500
+    d = 300 if case == "dense tiles" else int(case.split()[-1])
+    tiles = pb.as_bcsr_graph(pg.from_coo(rows, cols, vals, n, device=device),
+                             dtype=dtype, tile_rows=512).tiles.fwd
+    return tiles, randn(n, d, device=device, seed=d), n
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-5)])
+@pytest.mark.parametrize("case", ["heavy row", "remote past h_rows",
+                                  "ragged d 1", "ragged d 25",
+                                  "ragged d 745", "dense tiles"])
+def test_k1_routes_match_plain(cuda, dtype, tol, case):
+    """Both routes of K1, the walk and the staged route, against the plain
+    version, whichever route the store's shape picks: a tile with one row
+    that holds every column, a remote rect set whose last columns lie past
+    H's rows (they read zeros), widths off the column chunks, and tiles
+    dense enough that each band-tile fills several entry blocks. The two
+    routes agree exactly on every row but the walk's heavy rows: each such
+    element is the same FMA chain over ascending columns (a heavy row is
+    eight chains added in order). Each launch is counted on its route."""
+    tiles, h, n_out = k1_route_cases(case, dtype, cuda)
+    expect = pb.bcsr_spmm_plain(tiles, h, n_out)
+    kind = "f32" if dtype == "float32" else "bf16"
+    outs = []
+    for view in (None, pb.tile_view(tiles)):
+        route = ("walk" if view is None else "staged") + "_" + kind
+        before = dict(pb.bcsr_spmm.routes)
+        outs.append(pb.bcsr_spmm_cuda(tiles, h, n_out, view=view))
+        torch.cuda.synchronize()
+        assert pb.bcsr_spmm.routes[route] == before[route] + 1
+        torch.testing.assert_close(outs[-1], expect, rtol=tol, atol=tol)
+    light = torch.ones(n_out, dtype=torch.bool, device=cuda)
+    heavy = tiles.heavy[1].long()
+    light[heavy[heavy < n_out]] = False
+    assert torch.equal(outs[0][light], outs[1][light])   # one FMA chain
+    assert (case == "heavy row") == (not bool(light.all()))
+    assert tiles.route == pb.k1_route(tiles)
+    own = pb.bcsr_matmul(tiles, h, n_out)
+    torch.testing.assert_close(own, expect, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_staged_launch_shape_comes_from_the_kernel(cuda, dtype):
+    """The staged kernel's own layout is the one ``tile_view`` builds for,
+    and ``k1_launch_shape`` takes a launch's blocks, threads and shared
+    memory from the kernel: a block per 128-row band and 64-column chunk,
+    16 consumer warps and a producer, a ring of 3 slabs and entry
+    blocks."""
+    tiles, h, n_out = k1_route_cases("dense tiles", dtype, cuda)
+    item, d = tiles.values.element_size(), h.shape[1]
+    pb.check_layout(item)
+    got = pb.staged_describe(item, n_out, d)
+    assert ({k: got[k] for k in ("slots", "band", "chunk", "stages",
+                                 "block_words", "slab_rows")}
+            == {"slots": pb.WARP_ROWS, "band": pb.BAND,
+                "chunk": pb.STAGED_CHUNK, "stages": pb.STAGED_STAGES,
+                "block_words": pb.STAGED_BLOCK_WORDS, "slab_rows": 128})
+    assert got["blocks"] == -(-n_out // pb.BAND) * -(-d // pb.STAGED_CHUNK)
+    assert got["threads"] == 32 * (pb.BAND // pb.WARP_ROWS + 1)
+    assert got["smem_bytes"] == (pb.STAGED_STAGES * (128 * pb.STAGED_CHUNK
+                                                     * item + 4 *
+                                                     pb.STAGED_BLOCK_WORDS)
+                                 + 2 * pb.STAGED_STAGES * 8 + 1024)
+    shape = pb.k1_launch_shape(tiles, d, n_out, pb.tile_view(tiles))
+    assert {k: shape[k] for k in ("blocks", "threads", "smem_bytes")} == {
+        k: got[k] for k in ("blocks", "threads", "smem_bytes")}
+
+
 def zoo_run(device, name, faithful, init=None):
     """An OCGNN or AEGIS run on a small graph with 21 features (AEGIS's
     decoder width is off the vector), on the BCSR route, with fixed
