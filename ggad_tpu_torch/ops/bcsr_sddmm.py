@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ggad_tpu_torch.ops import _build
+from ggad_tpu_torch.utils.tracing import span
 from ggad_tpu_torch.ops.bcsr_spmm import (
     TILE,
     BCSR,
@@ -125,16 +126,18 @@ class _ColsumSquare(torch.autograd.Function):
         ctx.pair = pair
         ctx.save_for_backward(emb_n)
         # column sums of A == row sums of Aᵀ → the transposed tile set
-        return sddmm_colsum(pair.bwd, emb_n, emb_n)
+        with span("affinity"):
+            return sddmm_colsum(pair.bwd, emb_n, emb_n)
 
     @staticmethod
     def backward(ctx, g):
         (emb_n,) = ctx.saved_tensors
         pair = ctx.pair
-        g = _f32(g)[:, None]
-        term1 = bcsr_matmul(pair.fwd, (g * emb_n).contiguous())
-        term2 = g * bcsr_matmul(pair.bwd, emb_n)
-        return term1 + term2, None
+        with span("affinity"):
+            g = _f32(g)[:, None]
+            term1 = bcsr_matmul(pair.fwd, (g * emb_n).contiguous())
+            term2 = g * bcsr_matmul(pair.bwd, emb_n)
+            return term1 + term2, None
 
 
 class _ColsumRect(torch.autograd.Function):
@@ -146,17 +149,19 @@ class _ColsumRect(torch.autograd.Function):
         buf, emb_local = _f32(buf), _f32(emb_local)
         ctx.pair = pair
         ctx.save_for_backward(buf, emb_local)
-        return sddmm_colsum(pair.bwd, buf, emb_local)
+        with span("affinity"):
+            return sddmm_colsum(pair.bwd, buf, emb_local)
 
     @staticmethod
     def backward(ctx, g):
         buf, emb_local = ctx.saved_tensors
         pair = ctx.pair
-        g = _f32(g)[:, None]
-        d_buf = g * bcsr_matmul(pair.bwd, emb_local, buf.shape[0])
-        d_emb = bcsr_matmul(pair.fwd, (g * buf).contiguous(),
-                            emb_local.shape[0])
-        return d_buf, d_emb, None
+        with span("affinity"):
+            g = _f32(g)[:, None]
+            d_buf = g * bcsr_matmul(pair.bwd, emb_local, buf.shape[0])
+            d_emb = bcsr_matmul(pair.fwd, (g * buf).contiguous(),
+                                emb_local.shape[0])
+            return d_buf, d_emb, None
 
 
 def bcsr_sddmm_colsum(pair: BCSRPair, emb_n: torch.Tensor) -> torch.Tensor:

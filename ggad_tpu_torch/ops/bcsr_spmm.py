@@ -38,6 +38,7 @@ import torch
 from ggad_tpu_torch import native
 from ggad_tpu_torch.device import DeviceLike, resolve_device
 from ggad_tpu_torch.ops import _build
+from ggad_tpu_torch.utils.tracing import span
 
 TILE = 128  # tile width (and the unit of tile heights)
 
@@ -831,7 +832,8 @@ class _BCSRSpMM(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return bcsr_matmul(ctx.pair.bwd, g.float().contiguous()), None
+        with span("spmm"):
+            return bcsr_matmul(ctx.pair.bwd, g.float().contiguous()), None
 
 
 def bcsr_spmm(pair: BCSRPair, h: torch.Tensor) -> torch.Tensor:
@@ -857,8 +859,9 @@ class _BCSRSpMMRect(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (bcsr_matmul(ctx.pair.bwd, g.float().contiguous(), ctx.n_buf),
-                None, None)
+        with span("spmm"):
+            return (bcsr_matmul(ctx.pair.bwd, g.float().contiguous(),
+                                ctx.n_buf), None, None)
 
 
 def bcsr_spmm_rect(pair: BCSRPair, buf: torch.Tensor,

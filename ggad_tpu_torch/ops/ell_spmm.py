@@ -31,6 +31,12 @@ The products are differentiable in the dense operand
 (``torch.autograd.Function``), their backward a product with the
 transposed tables; the adjacency is not trained. Everything here is plain
 PyTorch: the JAX path is XLA gathers and adds, with no Pallas kernel.
+
+Each pass over a table runs under the spans ``ell.buckets`` and
+``ell.residual`` (``utils.tracing``), and counts what it gathers:
+``ell_spmm.bucket_slots`` (slots of bucket or flat tables),
+``ell_spmm.residual_entries`` and ``ell_spmm.residual_chunks`` (the
+residual's entries, padding included, and its chunks).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 
 from ggad_tpu_torch.device import DeviceLike, resolve_device
 from ggad_tpu_torch.ops.bcsr_spmm import storage_dtype
+from ggad_tpu_torch.utils.tracing import span
 
 # cap on the elements of one gathered block (256 MB in f32); larger
 # gathers run in chunks (``ell_spmm.py:445``)
@@ -362,6 +369,7 @@ def _slot_matmul(idx: torch.Tensor, val: torch.Tensor,
     type, the sum over K in f32."""
     k, m = idx.shape
     d = xc.shape[1]
+    ell_spmm.bucket_slots += k * m
     parts = []
     for lo, hi in _row_chunks(m, k * d):
         rows = xc.index_select(0, idx[:, lo:hi].reshape(-1))
@@ -377,6 +385,7 @@ def _slot_colsum(idx: torch.Tensor, val: torch.Tensor, ec: torch.Tensor,
     f32."""
     k, m = idx.shape
     d = ec.shape[1]
+    ell_spmm.bucket_slots += k * m
     parts = []
     for lo, hi in _row_chunks(m, k * d):
         rows = ec.index_select(0, idx[:, lo:hi].reshape(-1))
@@ -393,6 +402,8 @@ def _overflow_spmm(ov_row, ov_col, ov_val, x, n_rows):
     e, d = ov_row.shape[0], x.shape[1]
     out = torch.zeros(n_rows, d, dtype=torch.float32, device=x.device)
     chunk = e if e * d <= _OV_CHUNK_ELEMS else max(_OV_CHUNK_ELEMS // d, 1)
+    ell_spmm.residual_entries += e
+    ell_spmm.residual_chunks += -(-e // chunk)
     for lo in range(0, e, chunk):
         hi = min(lo + chunk, e)
         out.index_add_(0, ov_row[lo:hi],
@@ -407,6 +418,8 @@ def _overflow_colsum(m, emb_n, tgt):
     e, d = m.ov_row.shape[0], emb_n.shape[1]
     num = torch.zeros(m.n_rows, dtype=torch.float32, device=emb_n.device)
     chunk = e if e * d <= _OV_CHUNK_ELEMS else max(_OV_CHUNK_ELEMS // d, 1)
+    ell_spmm.residual_entries += e
+    ell_spmm.residual_chunks += -(-e // chunk)
     for lo in range(0, e, chunk):
         r, c = m.ov_row[lo:lo + chunk], m.ov_col[lo:lo + chunk]
         cos = (emb_n[c] * tgt[r]).sum(-1) * m.ov_val[lo:lo + chunk]
@@ -423,14 +436,17 @@ def _table_dtype(m, x: torch.Tensor) -> torch.dtype:
 def _sigma_matmul(s: ELLSigma, x: torch.Tensor) -> torch.Tensor:
     """out = M @ x: each bucket's product, the zero block, one gather back
     into row order, plus the residual (``ell_spmm.py:297-316``)."""
-    xc = x.to(_table_dtype(s, x))
-    parts = [_slot_matmul(b.idx, b.val, xc) for b in s.buckets]
-    if s.n_zero:
-        parts.append(torch.zeros(s.n_zero, x.shape[1], dtype=torch.float32,
-                                 device=x.device))
-    out = _cat(parts).index_select(0, s.inv)
+    with span("ell.buckets"):
+        xc = x.to(_table_dtype(s, x))
+        parts = [_slot_matmul(b.idx, b.val, xc) for b in s.buckets]
+        if s.n_zero:
+            parts.append(torch.zeros(s.n_zero, x.shape[1],
+                                     dtype=torch.float32, device=x.device))
+        out = _cat(parts).index_select(0, s.inv)
     if s.n_overflow:
-        out = out + _overflow_spmm(s.ov_row, s.ov_col, s.ov_val, x, s.n_rows)
+        with span("ell.residual"):
+            res = _overflow_spmm(s.ov_row, s.ov_col, s.ov_val, x, s.n_rows)
+        out = out + res
     return out
 
 
@@ -438,29 +454,35 @@ def _sigma_colsum(s: ELLSigma, emb_n: torch.Tensor,
                   tgt: torch.Tensor) -> torch.Tensor:
     """num[u] = Σ_i M_ui ⟨emb_n[i], tgt[u]⟩ over the table's rows u
     (``ell_spmm.py:319-351``); ``tgt`` has one row per table row."""
-    ec = emb_n.to(_table_dtype(s, emb_n))
-    tc = tgt.index_select(0, s.perm).to(ec.dtype)
-    parts = []
-    pos = 0
-    for b in s.buckets:
-        nb = b.idx.shape[1]
-        parts.append(_slot_colsum(b.idx, b.val, ec, tc[pos:pos + nb]))
-        pos += nb
-    if s.n_zero:
-        parts.append(torch.zeros(s.n_zero, dtype=torch.float32,
-                                 device=emb_n.device))
-    num = _cat(parts).index_select(0, s.inv)
+    with span("ell.buckets"):
+        ec = emb_n.to(_table_dtype(s, emb_n))
+        tc = tgt.index_select(0, s.perm).to(ec.dtype)
+        parts = []
+        pos = 0
+        for b in s.buckets:
+            nb = b.idx.shape[1]
+            parts.append(_slot_colsum(b.idx, b.val, ec, tc[pos:pos + nb]))
+            pos += nb
+        if s.n_zero:
+            parts.append(torch.zeros(s.n_zero, dtype=torch.float32,
+                                     device=emb_n.device))
+        num = _cat(parts).index_select(0, s.inv)
     if s.n_overflow:
-        num = num + _overflow_colsum(s, emb_n, tgt)
+        with span("ell.residual"):
+            res = _overflow_colsum(s, emb_n, tgt)
+        num = num + res
     return num
 
 
 def _ell_matmul(m: ELL, x: torch.Tensor) -> torch.Tensor:
     """out = M @ x for a flat table plus its residual
     (``ell_spmm.py:486-521``)."""
-    out = _slot_matmul(m.idx, m.val, x.to(m.val.dtype))
+    with span("ell.buckets"):
+        out = _slot_matmul(m.idx, m.val, x.to(m.val.dtype))
     if m.n_overflow:
-        out = out + _overflow_spmm(m.ov_row, m.ov_col, m.ov_val, x, m.n_rows)
+        with span("ell.residual"):
+            res = _overflow_spmm(m.ov_row, m.ov_col, m.ov_val, x, m.n_rows)
+        out = out + res
     return out
 
 
@@ -470,10 +492,13 @@ def _ell_colsum_raw(m_t: ELL, emb_n: torch.Tensor,
     (``ell_spmm.py:541-579``); ``tgt`` defaults to ``emb_n``."""
     if tgt is None:
         tgt = emb_n
-    num = _slot_colsum(m_t.idx, m_t.val, emb_n.to(m_t.val.dtype),
-                       tgt.to(m_t.val.dtype))
+    with span("ell.buckets"):
+        num = _slot_colsum(m_t.idx, m_t.val, emb_n.to(m_t.val.dtype),
+                           tgt.to(m_t.val.dtype))
     if m_t.n_overflow:
-        num = num + _overflow_colsum(m_t, emb_n, tgt)
+        with span("ell.residual"):
+            res = _overflow_colsum(m_t, emb_n, tgt)
+        num = num + res
     return num
 
 
@@ -490,7 +515,8 @@ def _colsum_any(m, emb_n: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
 
 
 class _ELLSpMM(torch.autograd.Function):
-    """A @ x forward, Aᵀ g backward (``ell_spmm.py:524-538``)."""
+    """A @ x forward, Aᵀ g backward (``ell_spmm.py:524-538``); the
+    backward under its own ``spmm`` span."""
 
     @staticmethod
     def forward(ctx, x, pair):
@@ -499,7 +525,8 @@ class _ELLSpMM(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _matmul_any(ctx.pair.bwd, g), None
+        with span("spmm"):
+            return _matmul_any(ctx.pair.bwd, g), None
 
 
 def ell_spmm(pair: ELLPair, x: torch.Tensor) -> torch.Tensor:
@@ -511,6 +538,11 @@ def ell_spmm(pair: ELLPair, x: torch.Tensor) -> torch.Tensor:
     return _ELLSpMM.apply(x, pair)
 
 
+ell_spmm.bucket_slots = 0
+ell_spmm.residual_entries = 0
+ell_spmm.residual_chunks = 0
+
+
 class _ELLAffinityColsum(torch.autograd.Function):
     """Column sums of A ∘ (N Nᵀ); dN = A (g ⊙ N) + g ⊙ (Aᵀ N)
     (``ell_spmm.py:588-609``)."""
@@ -519,15 +551,17 @@ class _ELLAffinityColsum(torch.autograd.Function):
     def forward(ctx, emb_n, pair):
         ctx.pair = pair
         ctx.save_for_backward(emb_n)
-        return _colsum_any(pair.bwd, emb_n, emb_n)
+        with span("affinity"):
+            return _colsum_any(pair.bwd, emb_n, emb_n)
 
     @staticmethod
     def backward(ctx, g):
         (emb_n,) = ctx.saved_tensors
         pair = ctx.pair
-        term1 = _matmul_any(pair.fwd, g[:, None] * emb_n)
-        term2 = g[:, None] * _matmul_any(pair.bwd, emb_n)
-        return term1 + term2, None
+        with span("affinity"):
+            term1 = _matmul_any(pair.fwd, g[:, None] * emb_n)
+            term2 = g[:, None] * _matmul_any(pair.bwd, emb_n)
+            return term1 + term2, None
 
 
 def ell_affinity_colsum(pair: ELLPair, emb_n: torch.Tensor) -> torch.Tensor:
@@ -595,18 +629,21 @@ class _ELLSubsetColsum(torch.autograd.Function):
     def forward(ctx, emb_n, sub):
         ctx.sub = sub
         ctx.save_for_backward(emb_n)
-        return _colsum_any(sub.bwd, emb_n, emb_n.index_select(0, sub.uniq))
+        with span("affinity"):
+            return _colsum_any(sub.bwd, emb_n,
+                               emb_n.index_select(0, sub.uniq))
 
     @staticmethod
     def backward(ctx, g):
         (emb_n,) = ctx.saved_tensors
         sub = ctx.sub
-        z = g[:, None] * emb_n.index_select(0, sub.uniq)     # [U, d]
-        term1 = _matmul_any(sub.fwd, z)                      # [N, d]
-        w = g[:, None] * _matmul_any(sub.bwd, emb_n)         # [U, d]
-        w_full = w.index_select(0, sub.upos)
-        return term1 + torch.where(sub.umask[:, None], w_full,
-                                   w_full.new_zeros(())), None
+        with span("affinity"):
+            z = g[:, None] * emb_n.index_select(0, sub.uniq)     # [U, d]
+            term1 = _matmul_any(sub.fwd, z)                      # [N, d]
+            w = g[:, None] * _matmul_any(sub.bwd, emb_n)         # [U, d]
+            w_full = w.index_select(0, sub.upos)
+            return term1 + torch.where(sub.umask[:, None], w_full,
+                                       w_full.new_zeros(())), None
 
 
 def ell_subset_colsum(sub: ELLAffinitySubset,

@@ -37,6 +37,7 @@ from ggad_tpu_torch.ops.ell_spmm import (
     ell_affinity_colsum,
     ell_subset_colsum,
 )
+from ggad_tpu_torch.utils.tracing import span
 
 
 def sddmm_dot(g, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,17 +74,18 @@ def node_affinity(g, emb: torch.Tensor) -> torch.Tensor:
 
     with 1/0 → 0. ``g`` is the raw adjacency plus self-loops. A
     :class:`BCSRGraph` takes K2, an :class:`ELLGraph` its table pair, a
-    plain graph the edge-parallel path.
+    plain graph the edge-parallel path; each under the ``affinity`` span.
     """
-    inv = _inverse(g.in_degrees())
-    if isinstance(g, BCSRGraph):
-        num = bcsr_sddmm_colsum(g.tiles, l2_normalize_rows(emb))
-    elif isinstance(g, ELLGraph):
-        num = ell_affinity_colsum(g.tables, l2_normalize_rows(emb))
-    else:
-        num = torch.zeros(g.n_nodes, dtype=emb.dtype, device=emb.device)
-        num = num.index_add(0, g.col, edge_cosine(g, emb))
-    return num * inv
+    with span("affinity"):
+        inv = _inverse(g.in_degrees())
+        if isinstance(g, BCSRGraph):
+            num = bcsr_sddmm_colsum(g.tiles, l2_normalize_rows(emb))
+        elif isinstance(g, ELLGraph):
+            num = ell_affinity_colsum(g.tables, l2_normalize_rows(emb))
+        else:
+            num = torch.zeros(g.n_nodes, dtype=emb.dtype, device=emb.device)
+            num = num.index_add(0, g.col, edge_cosine(g, emb))
+        return num * inv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,16 +177,17 @@ def node_affinity_at(sub, emb: torch.Tensor) -> torch.Tensor:
     """affinity[k] for the k-th requested node: the values of
     ``node_affinity(g, emb)[idx]`` (``sddmm.py:201-223``), edge-parallel,
     through K2 for a :class:`TileAffinitySubset` or through the rectangular
-    tables of an :class:`ELLAffinitySubset`."""
-    emb_n = l2_normalize_rows(emb)
-    if isinstance(sub, ELLAffinitySubset):
-        num = ell_subset_colsum(sub, emb_n)
-        return (num * sub.inv_den)[sub.gather]
-    tgt = emb_n[sub.uniq]
-    if isinstance(sub, TileAffinitySubset):
-        num = bcsr_sddmm_colsum_rect(sub.pair, tgt, emb_n)
-        return (num * sub.inv_den)[sub.gather]
-    cos = (emb_n[sub.row] * tgt[sub.col_local]).sum(-1) * sub.val
-    num = torch.zeros(sub.n_uniq, dtype=emb.dtype, device=emb.device)
-    num = num.index_add(0, sub.col_local, cos)
-    return (num * _inverse(sub.den))[sub.gather]
+    tables of an :class:`ELLAffinitySubset`, under the ``affinity`` span."""
+    with span("affinity"):
+        emb_n = l2_normalize_rows(emb)
+        if isinstance(sub, ELLAffinitySubset):
+            num = ell_subset_colsum(sub, emb_n)
+            return (num * sub.inv_den)[sub.gather]
+        tgt = emb_n[sub.uniq]
+        if isinstance(sub, TileAffinitySubset):
+            num = bcsr_sddmm_colsum_rect(sub.pair, tgt, emb_n)
+            return (num * sub.inv_den)[sub.gather]
+        cos = (emb_n[sub.row] * tgt[sub.col_local]).sum(-1) * sub.val
+        num = torch.zeros(sub.n_uniq, dtype=emb.dtype, device=emb.device)
+        num = num.index_add(0, sub.col_local, cos)
+        return (num * _inverse(sub.den))[sub.gather]

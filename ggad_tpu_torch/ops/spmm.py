@@ -5,7 +5,9 @@ The COO path is gather + ``index_add_`` (O(E·d)); a graph that carries
 BCSR tiles (:class:`~ggad_tpu_torch.ops.bcsr_spmm.BCSRGraph`) goes through
 the hand-written block-sparse kernel instead, and one that carries ELL
 tables (:class:`~ggad_tpu_torch.ops.ell_spmm.ELLGraph`) through their
-bucketed gathers.
+bucketed gathers. Every route runs under the ``spmm`` span
+(``utils.tracing``); the backward of the tile and table products opens
+its own.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ggad_tpu_torch.ops.bcsr_spmm import BCSRGraph, bcsr_spmm
 from ggad_tpu_torch.ops.ell_spmm import ELLGraph, ell_spmm
+from ggad_tpu_torch.utils.tracing import span
 
 SPMM_OP_IMPLS = ("auto", "coo", "xla", "bcsr", "pallas")
 
@@ -38,11 +41,12 @@ def spmm(g, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     if impl not in SPMM_OP_IMPLS:
         raise ValueError(f"unknown spmm impl {impl!r}")
     gather = impl in ("coo", "xla")
-    if isinstance(g, BCSRGraph) and not gather:
-        return bcsr_spmm(g.tiles, x)
-    if isinstance(g, ELLGraph) and not gather:
-        return ell_spmm(g.tables, x)
-    if impl in ("bcsr", "pallas"):
-        raise TypeError(f"spmm(impl={impl!r}) needs a BCSRGraph (see "
-                        f"as_bcsr_graph); got {type(g).__name__}")
-    return spmm_coo(g.row, g.col, g.val, x, g.n_nodes)
+    with span("spmm"):
+        if isinstance(g, BCSRGraph) and not gather:
+            return bcsr_spmm(g.tiles, x)
+        if isinstance(g, ELLGraph) and not gather:
+            return ell_spmm(g.tables, x)
+        if impl in ("bcsr", "pallas"):
+            raise TypeError(f"spmm(impl={impl!r}) needs a BCSRGraph (see "
+                            f"as_bcsr_graph); got {type(g).__name__}")
+        return spmm_coo(g.row, g.col, g.val, x, g.n_nodes)

@@ -29,6 +29,13 @@ backward) and K2 once (the margin subset); a halo evaluation launches K1
 twice a shard. The GSPMD path runs the edge-parallel gathers
 (``spmm_impl`` is forced to ``"coo"``, as JAX forces its XLA path) and
 launches neither kernel.
+
+Preparation, each step and each scoring call run under spans
+(``utils.tracing``): ``prepare`` (``prepare.normalize``, ``.route``,
+``.tables``, ``.ax``), ``prepare_training`` (``prepare.transpose``,
+``.seed_rows``, ``.subset``), ``step`` (``step.noise``, ``.forward``,
+``.loss``, ``.backward``, ``.optimizer``) and ``score``
+(``score.forward``, ``score.copy``).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from ggad_tpu_torch.ops.sddmm import affinity_subset, tile_affinity_subset
 from ggad_tpu_torch.ops.spmm import spmm
 from ggad_tpu_torch.train.checkpoint import Checkpointer
 from ggad_tpu_torch.train.losses import GGADLosses, ggad_losses
+from ggad_tpu_torch.utils.tracing import span
 
 SPMM_IMPLS = ("auto", "coo", "bcsr", "ell")
 # the JAX package's routing constants (full_batch.py:29-30), measured on
@@ -134,7 +142,8 @@ class ProfileWindow:
     (``ggad_tpu/train/full_batch.py:478-510``): it starts at the top of the
     first epoch ≥ ``first`` and stops after the step that reaches an epoch
     ≥ ``last``, once the card has finished it. Each step runs under a
-    ``train_step <epoch>`` range. With no activities it traces nothing."""
+    ``train_step <epoch>`` span, the step's own spans inside it. With no
+    activities it traces nothing."""
 
     first, last = 2, 4
 
@@ -154,7 +163,7 @@ class ProfileWindow:
     def step(self, epoch: int):
         if self.prof is None:
             return contextlib.nullcontext()
-        return torch.profiler.record_function(f"train_step {epoch}")
+        return span(f"train_step {epoch}")
 
     def after(self, epoch: int, last_value: torch.Tensor) -> None:
         if self.prof is None or epoch < self.last:
@@ -244,16 +253,26 @@ class FullBatchTrainer:
         # made at the first step: building a torch optimizer imports
         # torch._dynamo (seconds), which serving never needs
         self.optimizer: Optional[torch.optim.Optimizer] = None
-        if self.mesh is not None:
-            return self._post_init_sharded()
+        with span("prepare"):
+            if self.mesh is not None:
+                self._post_init_sharded()
+            else:
+                self._prepare()
 
-        adj, self.raw_adj = normalize_adj_reference(
-            from_scipy(ds.adj, device=self.device))
-        # decided once: adj and raw_adj share their edges, so their route
-        self.route = spmm_route(adj, self.spmm_impl, dtype=self.spmm_dtype)
-        # the forward tiles or table; prepare_training adds the transposed
-        self.adj = maybe_bcsr(adj, self.route, dtype=self.spmm_dtype,
-                              transpose=False)
+    def _prepare(self) -> None:
+        """The single-device graph preparation."""
+        ds = self.dataset
+        with span("prepare.normalize"):
+            adj, self.raw_adj = normalize_adj_reference(
+                from_scipy(ds.adj, device=self.device))
+        with span("prepare.route"):
+            # decided once: adj and raw_adj share their edges, so their route
+            self.route = spmm_route(adj, self.spmm_impl,
+                                    dtype=self.spmm_dtype)
+        with span("prepare.tables"):
+            # the forward tiles or table; prepare_training adds the transposed
+            self.adj = maybe_bcsr(adj, self.route, dtype=self.spmm_dtype,
+                                  transpose=False)
         self.seed_adj: Optional[Graph] = None
         self.aff_sub = None
         self.features = torch.as_tensor(ds.features, dtype=torch.float32,
@@ -265,8 +284,9 @@ class FullBatchTrainer:
                                           device=self.device)
         # features are constant, so Â@x is computed once, on the gather
         # path as the JAX package does (full_batch.py:234-239)
-        self.ax = (spmm(self.adj, self.features, impl="coo")
-                   if self.hoist_ax else None)
+        with span("prepare.ax"):
+            self.ax = (spmm(self.adj, self.features, impl="coo")
+                       if self.hoist_ax else None)
         self.model = GGAD(ds.feat_dim, self.embedding_dim).to(self.device)
 
     def _post_init_sharded(self) -> None:
@@ -318,32 +338,42 @@ class FullBatchTrainer:
         GSPMD paths build all of it at preparation."""
         if self.aff_sub is not None or self._sharded is not None:
             return
+        with span("prepare_training"):
+            self._prepare_training()
+
+    def _prepare_training(self) -> None:
         ds = self.dataset
         graph = self.adj
-        if isinstance(graph, (BCSRGraph, ELLGraph)):
-            self.adj = graph.with_transpose()
-            graph = graph.graph
-        self.seed_adj = rows_subgraph(graph, ds.abnormal_label_idx)
-        labeled = np.concatenate([
-            np.asarray(ds.normal_label_idx, np.int64),
-            np.asarray(ds.abnormal_label_idx, np.int64)])
         dtype = self.spmm_dtype
-        if self.route == "ell":
-            self.aff_sub = ell_affinity_subset(self.raw_adj, labeled,
-                                               dtype=dtype)
-            sg = self.seed_adj
-            sr, sc, sv = sg.host_coo()
-            self.seed_adj = ELLGraph(graph=sg, layout="sigma", tables=ELLPair(
-                fwd=ell_sigma_from_coo(sr, sc, sv, sg.n_nodes, dtype=dtype,
-                                       device=self.device),
-                bwd=ell_sigma_from_coo(sc, sr, sv, ds.n_nodes, dtype=dtype,
-                                       device=self.device),
-                n_nodes=sg.n_nodes))
-        elif self.route == "bcsr" and dtype == "bfloat16":
-            self.aff_sub = tile_affinity_subset(self.raw_adj, labeled,
-                                                dtype=dtype)
-        else:
-            self.aff_sub = affinity_subset(self.raw_adj, labeled)
+        with span("prepare.transpose"):
+            if isinstance(graph, (BCSRGraph, ELLGraph)):
+                self.adj = graph.with_transpose()
+                graph = graph.graph
+        with span("prepare.seed_rows"):
+            sg = self.seed_adj = rows_subgraph(graph, ds.abnormal_label_idx)
+            if self.route == "ell":
+                sr, sc, sv = sg.host_coo()
+                self.seed_adj = ELLGraph(
+                    graph=sg, layout="sigma", tables=ELLPair(
+                        fwd=ell_sigma_from_coo(sr, sc, sv, sg.n_nodes,
+                                               dtype=dtype,
+                                               device=self.device),
+                        bwd=ell_sigma_from_coo(sc, sr, sv, ds.n_nodes,
+                                               dtype=dtype,
+                                               device=self.device),
+                        n_nodes=sg.n_nodes))
+        with span("prepare.subset"):
+            labeled = np.concatenate([
+                np.asarray(ds.normal_label_idx, np.int64),
+                np.asarray(ds.abnormal_label_idx, np.int64)])
+            if self.route == "ell":
+                self.aff_sub = ell_affinity_subset(self.raw_adj, labeled,
+                                                   dtype=dtype)
+            elif self.route == "bcsr" and dtype == "bfloat16":
+                self.aff_sub = tile_affinity_subset(self.raw_adj, labeled,
+                                                    dtype=dtype)
+            else:
+                self.aff_sub = affinity_subset(self.raw_adj, labeled)
 
     def make_optimizer(self) -> torch.optim.Optimizer:
         """Adam, or AdamW when ``weight_decay``; the update formulas of
@@ -388,30 +418,42 @@ class FullBatchTrainer:
 
     def compute_losses(self, noise: torch.Tensor) -> GGADLosses:
         """Train-branch forward and the three-term loss at the model's
-        current parameters, with autograd recording."""
+        current parameters, with autograd recording: the forward under
+        ``step.forward``, the losses under ``step.loss`` (the sharded
+        paths compute both in one call, under ``step.forward``)."""
         if self._sharded is not None:
-            return self._sharded.losses(
-                dict(self.model.named_parameters()), noise, self.mesh,
-                confidence_margin=self.confidence_margin,
-                pos_weight=self.pos_weight)
+            with span("step.forward"):
+                return self._sharded.losses(
+                    dict(self.model.named_parameters()), noise, self.mesh,
+                    confidence_margin=self.confidence_margin,
+                    pos_weight=self.pos_weight)
         self.prepare_training()
-        out = self.model(self.adj, self.features, self.seed_idx,
-                         self.normal_idx, train=True, seed_adj=self.seed_adj,
-                         ax=self.ax, noise=noise)
-        return ggad_losses(out, self.raw_adj, self.seed_idx, self.normal_idx,
-                           confidence_margin=self.confidence_margin,
-                           pos_weight=self.pos_weight, aff_sub=self.aff_sub)
+        with span("step.forward"):
+            out = self.model(self.adj, self.features, self.seed_idx,
+                             self.normal_idx, train=True,
+                             seed_adj=self.seed_adj, ax=self.ax, noise=noise)
+        with span("step.loss"):
+            return ggad_losses(out, self.raw_adj, self.seed_idx,
+                               self.normal_idx,
+                               confidence_margin=self.confidence_margin,
+                               pos_weight=self.pos_weight,
+                               aff_sub=self.aff_sub)
 
     def train_step(self, generator: torch.Generator) -> GGADLosses:
         """One step: noise, forward, loss, backward, optimizer update.
         Returns the losses, detached (on the device, not read)."""
-        if self.optimizer is None:
-            self.optimizer = self.make_optimizer()
-        self.optimizer.zero_grad(set_to_none=True)
-        losses = self.compute_losses(self.draw_noise(generator))
-        losses.total.backward()
-        self.optimizer.step()
-        return GGADLosses(*(t.detach() for t in losses))
+        with span("step"):
+            if self.optimizer is None:
+                self.optimizer = self.make_optimizer()
+            self.optimizer.zero_grad(set_to_none=True)
+            with span("step.noise"):
+                noise = self.draw_noise(generator)
+            losses = self.compute_losses(noise)
+            with span("step.backward"):
+                losses.total.backward()
+            with span("step.optimizer"):
+                self.optimizer.step()
+            return GGADLosses(*(t.detach() for t in losses))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -433,7 +475,11 @@ class FullBatchTrainer:
         """One one-class logit per node (higher = more anomalous), the
         reference's eval-branch semantics (``run.py:230-240``), on the
         host."""
-        return self.logits(params).cpu().numpy()
+        with span("score"):
+            with span("score.forward"):
+                logits = self.logits(params)
+            with span("score.copy"):
+                return logits.cpu().numpy()
 
     def evaluate(self, params: Optional[Mapping[str, torch.Tensor]] = None,
                  subset: str = "test") -> tuple[float, float]:

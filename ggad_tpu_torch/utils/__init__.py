@@ -1,1 +1,2 @@
-"""Utilities of the port: structured jsonl logging."""
+"""Utilities of the port: structured jsonl logging and the spans of its
+layers (``tracing``)."""

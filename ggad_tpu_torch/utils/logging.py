@@ -1,13 +1,13 @@
-"""Structured jsonl metric logging and a step timer (counterpart of
+"""Structured jsonl metric logging (counterpart of
 ``ggad_tpu/utils/logging.py``): each record is one json line with a
-wall-clock timestamp, for ``cli.py --log_jsonl``."""
+wall-clock timestamp, for ``cli.py --log_jsonl``. JAX's ``StepTimer`` has
+no counterpart: ``utils.tracing`` times the port's stages."""
 
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Optional
 
 
 class JsonlLogger:
@@ -25,28 +25,3 @@ class JsonlLogger:
 
     def close(self) -> None:
         self._fh.close()
-
-
-class StepTimer:
-    """Accumulating wall-clock timer (``ggad_tpu/utils/logging.py:33-52``,
-    the reference's ``total_time`` pattern): each ``with`` block adds its
-    seconds to ``total`` and one to ``count``. It reads the host clock: a
-    block that only enqueues work on the card must synchronize inside to
-    time it."""
-
-    def __init__(self):
-        self.total = 0.0
-        self.count = 0
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.total += time.perf_counter() - self._t0
-        self.count += 1
-
-    @property
-    def mean(self) -> float:
-        return self.total / max(self.count, 1)

@@ -1,13 +1,12 @@
 """The last helpers of the port against ``ggad_tpu``: ``viz`` (the four
 figures, the ROC and PR curves' arrays), ``Graph.transpose_host``,
-``utils.logging.StepTimer``, ``parallel.halo_trainer.halo_training_run``
+``parallel.halo_trainer.halo_training_run``
 against ``FullBatchTrainer(mesh=D)``, and ``FullBatchTrainer``'s
 ``profile_dir`` window (driven with CPU activity here; on a card it traces
 the host and the card)."""
 
 import json
 import os
-import time
 
 import matplotlib.figure
 import numpy as np
@@ -122,22 +121,6 @@ def test_transpose_host_equals_jax():
         assert torch.equal(getattr(back, name), getattr(g, name))
 
 
-def test_step_timer_matches_jax_api():
-    from ggad_tpu.utils.logging import StepTimer as JaxTimer
-    from ggad_tpu_torch.utils.logging import StepTimer
-
-    for cls in (StepTimer, JaxTimer):
-        timer = cls()
-        assert (timer.total, timer.count, timer.mean) == (0.0, 0, 0.0)
-        for _ in range(3):
-            with timer as t:
-                assert t is timer
-                time.sleep(0.01)
-        assert timer.count == 3
-        assert 0.03 <= timer.total < 1.0
-        assert timer.mean == pytest.approx(timer.total / 3)
-
-
 def rel_close(got, ref, tol):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     assert np.all(np.abs(got - ref) <= tol * (1 + np.abs(ref))), (got, ref)
@@ -178,6 +161,17 @@ def trace_steps(path):
                   and e["name"].startswith("train_step "))
 
 
+def stages_by_step(path):
+    """The names of the spans inside each ``train_step <epoch>`` range."""
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    return {int(s["name"].split()[1]):
+            {e["name"] for e in spans
+             if s["ts"] <= e["ts"] <= s["ts"] + s["dur"]}
+            for s in spans if s["name"].startswith("train_step ")}
+
+
 def test_profile_window_traces_steps_2_to_4(tmp_path, monkeypatch):
     """``train()`` with ``profile_dir`` traces epochs 2..4 (JAX's window)
     as a Chrome trace; here with CPU activity, in place of the card's."""
@@ -197,6 +191,13 @@ def test_profile_window_traces_steps_2_to_4(tmp_path, monkeypatch):
     files = os.listdir(out)
     assert files == ["trace_steps_2_4.json"]
     assert trace_steps(out / files[0]) == [2, 3, 4]
+    # each traced step carries the step's own spans (utils.tracing)
+    stages = {"step", "step.noise", "step.forward", "step.loss",
+              "step.backward", "step.optimizer", "spmm", "affinity"}
+    by_step = stages_by_step(out / files[0])
+    assert sorted(by_step) == [2, 3, 4]
+    for epoch, names in by_step.items():
+        assert stages <= names, (epoch, stages - names)
 
 
 def test_profile_window_alone_on_cpu_activity(tmp_path):
